@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels replacing the reference's Pallas kernels.
+
+  flash_attention/  prefill: ``flash_prefill`` (csrc/flash_attention.cu)
+  paged_attention/  decode: ``paged_decode`` and ``paged_append``
+                    (csrc/paged_attention.cu)
+
+Each wrapper sends a CPU tensor to its plain PyTorch version (the CPU
+path and the oracle) and launches its kernel on a CUDA tensor, counting
+launches in an integer attribute ``launches``.  ``build`` compiles the
+CUDA sources with nvcc on first use.
+"""

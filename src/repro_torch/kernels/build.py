@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Each source ``repro_torch/csrc/<name>.cu`` has a plain C interface (no
+PyTorch headers, so a build takes seconds) and compiles into its own
+shared library under ``build/kernels/`` at the root of the checkout::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>-<hash>.so <name>.cu
+
+The file name carries a hash of the source and the flags, so an edited
+source never loads a stale library.  Nothing is built when a module is
+imported: ``build_all`` starts one nvcc per source at once and waits for
+all of them, and ``function`` builds its library on first use.  A missing
+nvcc or a failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("flash_attention", "paged_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, object] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the port's CUDA kernels cannot be built")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named source that has no current library, all nvcc
+    processes running at once.  Returns the compiler's output per source
+    built (ptxas register and spill counts); raises on any failure."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = {}, []
+    for name, tmp, out, proc in procs:
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n"
+                          f"{logs[name]}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def function(lib: str, fn: str, argtypes: Sequence):
+    """The C function ``fn`` of library ``lib`` with its argument types
+    declared; it returns the kernel launch's ``cudaGetLastError()``."""
+    key = (lib, fn)
+    if key not in _FUNCS:
+        if lib not in _LIBS:
+            build_all([lib])
+            _LIBS[lib] = ctypes.CDLL(str(library_path(lib)))
+        f = getattr(_LIBS[lib], fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _FUNCS[key] = f
+    return _FUNCS[key]

@@ -1,0 +1,171 @@
+"""Paged decode: the Hopper kernels' wrappers and their plain versions.
+
+``paged_decode`` is the port of the Pallas kernel
+``repro/kernels/paged_attention/kernel.py::paged_decode_attention`` (and
+its wrapper ``ops.py::paged_attention``), with the model path's sliding
+window added.  ``paged_append`` is the port of the ``mode="drop"``
+scatter in ``ops.py::paged_decode_step`` / ``layers.paged_kv_update``.
+A CPU tensor goes to the plain version; a CUDA tensor launches
+``csrc/paged_attention.cu`` (bf16, head_dim 16, 64 or 128, int32
+indices).  Torch indexing raises (or device-asserts) on the engine's
+out-of-range drop sentinel, which is why the append is a kernel and not
+``index_put_``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 64, 128)
+
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                    + [ctypes.c_float, ctypes.c_void_p])
+_APPEND_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the CPU path and the oracle
+# ---------------------------------------------------------------------------
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
+    """Twin of ``repro.models.layers.decode_attention``.
+
+    q: (B,1,H,D); k_cache/v_cache: (B,S,K,D); pos: (B,) position of the
+    current token (already in the cache).  Masks pos-window < idx <= pos."""
+    B, _, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    qr = q.reshape(B, K, H // K, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float()) \
+        * (1.0 / math.sqrt(D))
+    idx = torch.arange(S, device=q.device)[None, :]
+    pos_b = torch.as_tensor(pos, device=q.device).broadcast_to((B,))[:, None]
+    valid = idx <= pos_b
+    if window:
+        valid &= idx > pos_b - window
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def paged_kv_gather(k_pool, v_pool, tables):
+    """Per-row block tables (B, nb) -> contiguous (B, nb*block, K, dh)."""
+    B, nb = tables.shape
+    _, blk, K, dh = k_pool.shape
+    idx = tables.long()
+    return (k_pool[idx].reshape(B, nb * blk, K, dh),
+            v_pool[idx].reshape(B, nb * blk, K, dh))
+
+
+def paged_decode_plain(q, k_pool, v_pool, tables, lens, *, window: int = 0):
+    """Gather the blocks, then ``decode_attention`` at position lens-1."""
+    k, v = paged_kv_gather(k_pool, v_pool, tables)
+    return decode_attention(q[:, None], k, v, lens.long() - 1,
+                            window=window)[:, 0]
+
+
+def paged_append_plain(k_pool, v_pool, k_new, v_new, block_ids, offsets):
+    """Masked ``index_put_``: rows whose block id or offset is out of
+    range are dropped, like JAX's ``mode="drop"``.  In place."""
+    nblk, blk = k_pool.shape[0], k_pool.shape[1]
+    keep = (block_ids >= 0) & (block_ids < nblk) & (offsets >= 0) \
+        & (offsets < blk)
+    bids, offs = block_ids[keep].long(), offsets[keep].long()
+    k_pool[bids, offs] = k_new[keep].to(k_pool.dtype)
+    v_pool[bids, offs] = v_new[keep].to(v_pool.dtype)
+    return k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+def _cuda_checks(name, bf16s, ints, head_dim):
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head_dim {HEAD_DIMS}, "
+                         f"not {head_dim}")
+    for label, t in bf16s:
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16 \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel wants contiguous, 16-byte "
+                             f"aligned bf16 CUDA {label}; got {t.dtype} on "
+                             f"{t.device}")
+    for label, t in ints:
+        if t.device.type != "cuda" or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} kernel wants contiguous int32 CUDA "
+                             f"{label}; got {t.dtype} on {t.device}")
+
+
+def paged_decode(q, k_pool, v_pool, tables, lens, *, window: int = 0):
+    """q: (B, H, dh); pools: (num_blocks, block, K, dh); tables: (B, nb)
+    int32; lens: (B,) int32 token counts including the current token.
+    Returns (B, H, dh)."""
+    B, H, dh = q.shape
+    num_blocks, block, K, _ = k_pool.shape
+    if v_pool.shape != k_pool.shape or k_pool.shape[3] != dh or H % K \
+            or tables.shape[0] != B or lens.shape != (B,):
+        raise ValueError(f"paged_decode: incompatible q {tuple(q.shape)}, "
+                         f"pool {tuple(k_pool.shape)}, tables "
+                         f"{tuple(tables.shape)}, lens {tuple(lens.shape)}")
+    if q.device.type == "cpu":
+        return paged_decode_plain(q, k_pool, v_pool, tables, lens,
+                                  window=window)
+    if H // K > 8:
+        raise ValueError(f"paged_decode kernel takes at most 8 query heads "
+                         f"per KV head, not {H // K}")
+    _cuda_checks("paged_decode",
+                 (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)),
+                 (("tables", tables), ("lens", lens)), dh)
+    out = torch.empty_like(q)
+    fn = build.function("paged_attention", "paged_decode", _DECODE_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                 B, H, K, dh, num_blocks, block, tables.shape[1],
+                 int(window), 1.0 / math.sqrt(dh), stream)
+    if err:
+        raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
+    paged_decode.launches += 1
+    return out
+
+
+def paged_append(k_pool, v_pool, k_new, v_new, block_ids, offsets):
+    """Write row b's k_new/v_new (B, K, dh) into the pools
+    (num_blocks, block, K, dh) at (block_ids[b], offsets[b]), in place;
+    out-of-range rows are dropped.  Returns (k_pool, v_pool)."""
+    num_blocks, block, K, dh = k_pool.shape
+    B = k_new.shape[0]
+    if v_pool.shape != k_pool.shape or k_new.shape != (B, K, dh) \
+            or v_new.shape != k_new.shape or block_ids.shape != (B,) \
+            or offsets.shape != (B,):
+        raise ValueError(f"paged_append: incompatible pool "
+                         f"{tuple(k_pool.shape)}, new {tuple(k_new.shape)}, "
+                         f"ids {tuple(block_ids.shape)}")
+    if k_pool.device.type == "cpu":
+        return paged_append_plain(k_pool, v_pool, k_new, v_new, block_ids,
+                                  offsets)
+    _cuda_checks("paged_append",
+                 (("k_pool", k_pool), ("v_pool", v_pool), ("k_new", k_new),
+                  ("v_new", v_new)),
+                 (("block_ids", block_ids), ("offsets", offsets)), dh)
+    fn = build.function("paged_attention", "paged_append", _APPEND_ARGTYPES)
+    with torch.cuda.device(k_pool.device):
+        stream = torch.cuda.current_stream(k_pool.device).cuda_stream
+        err = fn(k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+                 v_pool.data_ptr(), block_ids.data_ptr(), offsets.data_ptr(),
+                 B, K, dh, num_blocks, block, stream)
+    if err:
+        raise RuntimeError(f"paged_append launch failed: CUDA error {err}")
+    paged_append.launches += 1
+    return k_pool, v_pool
+
+
+paged_decode.launches = 0
+paged_append.launches = 0
