@@ -9,23 +9,46 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. The card: ``nvidia-smi`` name and power limit.  Build the kernels from
    ``src/repro_torch/csrc/*.cu`` with nvcc (one process per source, all
    at once) into ``build/kernels/``.
-2. Every kernel against its plain PyTorch version on the card, in bf16,
-   within 2e-2: flash prefill at llama3.2-3b width (S=1024, H=24, K=8,
-   D=128; causal, and causal + window 32) and at micro width (D=16, and a
-   ragged S); paged append + decode at B=4, H=24, K=8, dh=128, block 16,
-   lens up to 2048 with a drop-sentinel row (window 0 and 32), and at
-   dh=16.  Each kernel is timed with CUDA events beside its plain
-   version, its bound and, for flash, ``scaled_dot_product_attention``
-   (a yardstick the port never calls).
-3. A reference check on a small input: micro's prefill and paged-decode
-   logits through the kernels on the card against the plain versions on
-   the CPU.
-4. The main path: llama3.2-3b at full width and depth with random bf16
-   weights made on the card from a seed, served by ``MultiWorkerServer``
-   (2 workers, 4 slots, max_len 2048, block 16, 1024 pool blocks) for 4
-   agent tasks of 3 steps.  The kernels' launch counts are zeroed just
-   before and read just after; each must be > 0, and conservation and the
-   block audit must be clean.
+2. Every kernel against its plain PyTorch version on the card: flash
+   prefill at llama3.2-3b width (S=1024, H=24, K=8, D=128; causal, and
+   causal + window 32) and at micro width (D=16, and a ragged S); paged
+   append + decode at B=4, H=24, K=8, dh=128, block 16, lens up to 2048
+   with a drop-sentinel row (window 0 and 32), and at dh=16 (bf16, 2e-2);
+   wkv6 at rwkv6-7b's prefill (B=4, T=1024, H=64, dh=64) and decode (T=1,
+   a state in) shapes and at head size 16; mamba_scan at jamba's prefill
+   (B=2, T=1024, di=8192, ds=16, h.C rounded to bf16) and decode (T=1, a
+   state in) shapes and at di=128, ds=8 in both modes (outputs and final
+   states, 1e-3 relative; the rounding mode's outputs equal but on at
+   most 1 % of elements, each at most one bf16 step of h.C off).  Each kernel
+   is timed with CUDA events beside its plain version, its bound and, for
+   flash, ``scaled_dot_product_attention`` (a yardstick the port never
+   calls).
+3. Reference checks on small inputs: micro's prefill and paged-decode
+   logits, and rwkv6-tiny's and jamba-tiny's prefill + 4 ``decode_step``s,
+   through the kernels on the card against the plain versions on the CPU.
+4. The serving path: llama3.2-3b at full width and depth with random
+   bf16 weights made on the card from a seed, served by
+   ``MultiWorkerServer`` (2 workers, 4 slots, max_len 2048, block 16,
+   1024 pool blocks) for 4 agent tasks of 3 steps.  The kernels' launch
+   counts are zeroed just before and read just after; each of its
+   kernels must be > 0, and conservation and the block audit must be
+   clean.  Then one more task under the profiler.
+5. Path A: rwkv6-7b at full width and depth (B=4 prompts of 1024 tokens)
+   through ``lm.prefill`` then 32 greedy ``lm.decode_step``s carrying the
+   state cache: exactly 32 x 33 wkv6 launches and no other.
+6. Path B: jamba-v0.1-52b at full width, depth cut to one superblock (8
+   layers), B=2: exactly 7 x 33 mamba_scan, 1 flash_prefill and 32 each
+   of paged_append and paged_decode launches.
+   Each path then runs ``lm.forward_logits`` on the prompt and on the
+   1056-token sequences and ``lm.prefill`` on the sequences (launches
+   counted apart).  It holds the prefill's logits to the forward within
+   2e-2 of the largest logit, the last decode step's within a fixed limit
+   per path (TOL_DECODE), and the carried states (the first layer of
+   each cache entry) to the sequence's prefill within TOL_STATE.  The
+   same step with a fault planted in its inputs (a lost state write, a
+   dropped token-shift or conv state, a position off by one, a zero
+   cache) must fail one of the two.  Both paths run before a failed
+   check ends the script.
 
 The second-to-last line is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Nothing falls back to the CPU: without
@@ -33,6 +56,7 @@ CUDA the script exits non-zero before any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -42,18 +66,22 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 TOL_BF16 = 2e-2             # tests/test_kernels.py TOL[bfloat16]
+TOL_SCAN = 1e-3             # tests/test_kernels.py's wkv6 tolerance
+ROUND_SHARE = 1e-2          # mamba_scan's rounding mode: see rounding_errs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
+F32_FLOPS = 67e12           # f32 outside the tensor cores (the scans' type)
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the bf16 peak."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    operations over the peak of their type (bf16 tensor cores unless
+    given)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
@@ -97,6 +125,12 @@ def _dev_us(evt) -> float:
 
 def max_err(x, y) -> float:
     return float((x.float() - y.float()).abs().max())
+
+
+def rel_err(x, ref) -> float:
+    """Max abs error over the reference's largest magnitude (at least 1):
+    the recurrences' states and outputs grow past 1 with the sequence."""
+    return max_err(x, ref) / max(1.0, float(ref.float().abs().max()))
 
 
 def check(name: str, err: float, tol: float = TOL_BF16) -> float:
@@ -244,6 +278,211 @@ def paged_phase(torch, gen):
     return [recs["paged_decode"], recs["paged_append"]]
 
 
+def wkv6_phase(torch, gen):
+    """wkv6 at rwkv6-7b's prefill (B=4, T=1024, H=64, dh=64, zero state)
+    and decode (T=1, a state in) shapes, and at rwkv6-tiny's head size 16;
+    outputs and final states within TOL_SCAN of the plain scan, relative
+    to their largest magnitude (both are f32; the sums run in another
+    order)."""
+    from repro_torch.kernels.rwkv6 import ops as R
+
+    def inputs(B, T, H, dh, state):
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+        r, k, v = ((mk(B, T, H, dh) * 0.5).to(torch.bfloat16)
+                   for _ in range(3))
+        # the model's decay exp(-exp(dec)), dec over its init range -5..3
+        dec = -5 + 8 * torch.rand(B, T, H, dh, generator=gen, device="cuda")
+        w = torch.exp(-torch.exp(dec))
+        u = mk(H, dh) * 0.3
+        return r, k, v, w, u, (mk(B, H, dh, dh) if state else None)
+
+    errs, rec = [], None
+    for B, T, H, dh, state in [(4, 1024, 64, 64, False), (4, 1, 64, 64, True),
+                               (2, 37, 4, 16, True), (2, 1, 4, 16, True)]:
+        args = inputs(B, T, H, dh, state)
+        out, s_T = R.wkv6(*args)
+        torch.cuda.synchronize()
+        ref, ref_T = R.wkv6_plain(*args)
+        errs.append(check(f"wkv6 B={B} T={T} H={H} dh={dh} "
+                          f"state_in={state} (out, S_T)",
+                          max(rel_err(out, ref), rel_err(s_T, ref_T)),
+                          tol=TOL_SCAN))
+        if rec is None:        # rwkv6-7b's prefill shape
+            ms = timed(torch, lambda: R.wkv6(*args))
+            plain_ms = timed(torch, lambda: R.wkv6_plain(*args), iters=2,
+                             warmup=1)
+            dev = device_ms(torch, lambda: R.wkv6(*args), "wkv6_kernel")
+            n = B * T * H * dh
+            nbytes = n * (3 * 2 + 4 + 4) + H * dh * 4 + B * H * dh * dh * 4
+            # per (b, t, h): w*S + k v^T (a multiply and an FMA) and r.S
+            # (an FMA) on dh^2 state elements, 5 flops each; the u term
+            # v_j * sum_i r_i u_i k_i and its add, 5 per head lane
+            bms, by = bound(nbytes, n * (5 * dh + 5), F32_FLOPS)
+            rec = {"name": "wkv6", "route": "cuda",
+                   "source": "src/repro_torch/csrc/wkv6.cu",
+                   "replaces": "src/repro/kernels/rwkv6/kernel.py:47",
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": None, "device_ms": dev,
+                   "library_note": "no PyTorch call computes the WKV6 "
+                                   "recurrence",
+                   "shape": f"B={B} T={T} H={H} dh={dh} zero state"}
+            log(f"  wkv6 time {ms:.4f} ms (device {dev} ms)  plain "
+                f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})")
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def mamba_phase(torch, gen):
+    """mamba_scan at jamba's prefill (B=2, T=1024, di=8192, ds=16, zero
+    state, h.C rounded to bf16) and decode (T=1, a state in, unrounded)
+    shapes, and at jamba-tiny's (di=128, ds=8) in both modes, with B and C
+    strided slices of one projection as mamba_layer passes them.  Outputs
+    and final states within TOL_SCAN of their largest magnitude; the
+    rounding mode's outputs by ``rounding_errs``."""
+    from repro_torch.kernels.mamba_scan import ops as M
+
+    def inputs(B, T, di, ds, dtr, state):
+        mk = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+        x = mk(B, T, di).to(torch.bfloat16)
+        dt = torch.nn.functional.softplus(mk(B, T, di) - 3).to(torch.bfloat16)
+        dbc = mk(B, T, dtr + 2 * ds).to(torch.bfloat16)
+        A = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda"
+                          ).expand(di, ds).contiguous()
+        D = torch.ones(di, device="cuda")
+        return (x, dt, dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:], A, D,
+                mk(B, di, ds) * 0.5 if state else None)
+
+    errs, rec = [], None
+    for B, T, di, ds, dtr, state, rnd in [
+            (2, 1024, 8192, 16, 256, False, True),
+            (2, 1, 8192, 16, 256, True, False),
+            (2, 45, 128, 8, 4, False, True), (2, 45, 128, 8, 4, True, False),
+            (2, 1, 128, 8, 4, True, False)]:
+        args = inputs(B, T, di, ds, dtr, state)
+        y, h_T = M.mamba_scan(*args, round_y=rnd)
+        torch.cuda.synchronize()
+        ref, ref_T = M.mamba_scan_plain(*args, round_y=rnd)
+        name = (f"mamba_scan B={B} T={T} di={di} ds={ds} state_in={state} "
+                f"round_y={rnd}")
+        if rnd:
+            steps, share = rounding_errs(torch, y, ref, args[0], args[5])
+            check(name + " (y: largest difference, in bf16 steps of h.C)",
+                  steps, tol=1.0001)
+            check(name + " (y: share of elements off the plain version)",
+                  share, tol=ROUND_SHARE)
+            errs.append(rel_err(y, ref))
+        else:
+            errs.append(check(name + " (y)", rel_err(y, ref), tol=TOL_SCAN))
+        errs.append(check(name + " (h_T)", rel_err(h_T, ref_T),
+                          tol=TOL_SCAN))
+        if rec is None:        # jamba's prefill shape
+            ms = timed(torch, lambda: M.mamba_scan(*args, round_y=True))
+            plain_ms = timed(torch, lambda: M.mamba_scan_plain(
+                *args, round_y=True), iters=2, warmup=1)
+            dev = device_ms(torch, lambda: M.mamba_scan(*args, round_y=True),
+                            "mamba_scan_kernel")
+            n = B * T * di
+            nbytes = (n * (2 + 2 + 4) + 2 * B * T * ds * 2 + di * ds * 4
+                      + di * 4 + B * di * ds * 4)
+            bms, by = bound(nbytes, n * (7 * ds + 3), F32_FLOPS)
+            rec = {"name": "mamba_scan", "route": "cuda",
+                   "source": "src/repro_torch/csrc/mamba_scan.cu",
+                   "replaces": "src/repro/kernels/mamba_scan/kernel.py:45",
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": None, "device_ms": dev,
+                   "library_note": "no PyTorch call computes the selective "
+                                   "scan",
+                   "shape": f"B={B} T={T} di={di} ds={ds} zero state, "
+                            f"round_y"}
+            log(f"  mamba_scan time {ms:.4f} ms (device {dev} ms)  plain "
+                f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})")
+    rec["max_abs_err"] = max(errs)
+    return rec
+
+
+def rounding_errs(torch, y, ref, x, D):
+    """The rounding mode's y = bf16(h.C) + D*x against the plain version's.
+    Where the two h.C sums round to the same bf16 value, the two y agree
+    to f32 rounding; where they straddle a rounding boundary, they differ
+    by one bf16 step of h.C.  Returns (the largest difference in bf16
+    steps of h.C, the share of elements that differ at all).  A kernel
+    that ignored the flag would differ on nearly every element."""
+    xD = x.float() * D.float()
+    d = (y - ref).abs()
+    slack = 8 * torch.finfo(torch.float32).eps * (ref.abs() + xD.abs())
+    # one bf16 step (8 significant bits) at the larger of the two h.C
+    _, e = torch.frexp((ref - xD).abs() + d)
+    step = torch.ldexp(torch.ones_like(d), e - 8)
+    off = d > slack
+    return (float(((d - slack).clamp_min(0) / step).max()),
+            float(off.float().mean()))
+
+
+class SameRouting:
+    """Holds one run of jamba's MoE to the expert picks another run made.
+
+    Two runs of the same tokens (the card and the CPU, or prefill + decode
+    and the full forward) round the residual stream differently, and on a
+    near-tie of the top-2 pick one other expert moves that row's logits
+    far past any rounding tolerance.  ``record`` stores each router call's
+    probabilities and picks; ``replay`` makes the router return recorded
+    picks in call order, weighted by its own probabilities.  Each token
+    where it would have picked otherwise is counted and must be a near-tie
+    of the recording (its k-th vs (k+1)-th gap below 4x the two runs'
+    probability difference)."""
+
+    def __init__(self, torch, layers):
+        self.torch, self.L = torch, layers
+        self.router = layers.moe_router
+        self.calls, self.flips, self.gaps = [], 0, []
+
+    def record(self):
+        def rec(x2d, w, k):
+            p, e = self.router(x2d, w, k)
+            self.calls.append((self.torch.softmax((x2d @ w).float(), -1), e))
+            return p, e
+        self.L.moe_router = rec
+
+    def replay(self, calls):
+        queue = list(calls)
+
+        def rep(x2d, w, k):
+            probs_r, ids_r = (t.to(x2d.device) for t in queue.pop(0))
+            _, own = self.router(x2d, w, k)
+            probs = self.torch.softmax((x2d @ w).float(), -1)
+            flip = (own.sort(-1).values != ids_r.sort(-1).values).any(-1)
+            if bool(flip.any()):
+                srt = probs_r[flip].sort(-1, descending=True).values
+                gap = srt[:, k - 1] - srt[:, k]
+                diff = (probs[flip] - probs_r[flip]).abs().amax(-1)
+                if not bool((gap < 4 * diff).all()):
+                    raise AssertionError(f"router pick differs away from a "
+                                         f"near-tie: gap {gap.tolist()} vs "
+                                         f"difference {diff.tolist()}")
+                self.flips += int(flip.sum())
+                self.gaps += gap.tolist()
+            top_p = probs.gather(1, ids_r)
+            return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), ids_r
+        self.L.moe_router = rep
+
+    def by_position(self, B, S, n_dec):
+        """The picks recorded over a prefill of S tokens then n_dec decode
+        steps, per MoE layer as (probs (B, S + n_dec, E), ids (B, S +
+        n_dec, k)) in position order."""
+        n = len(self.calls) // (1 + n_dec)
+        out = []
+        for layer in range(n):
+            steps = [self.calls[layer]] + [self.calls[n * (1 + j) + layer]
+                                           for j in range(n_dec)]
+            out.append(tuple(
+                self.torch.cat([c[i].reshape(B, -1, c[i].shape[-1])
+                                for c in steps], 1) for i in (0, 1)))
+        return out
+
+    def restore(self):
+        self.L.moe_router = self.router
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the model through the kernels on the card vs plain on the CPU
 # ---------------------------------------------------------------------------
@@ -292,19 +531,52 @@ def reference_phase(torch, np):
                  max_err(outs["cuda"], outs["cpu"]))
 
 
+def ssm_reference_phase(torch, np):
+    """rwkv6-tiny and jamba-tiny: prefill (S=40) + 4 decode_steps through
+    the kernels on the card against the plain versions on the CPU, from
+    the same seed weights; jamba's card run is held to the CPU run's MoE
+    picks (SameRouting)."""
+    from repro_torch.configs import jamba_v0_1_52b, rwkv6_7b
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    for cfg in (rwkv6_7b.tiny(), jamba_v0_1_52b.tiny()):
+        cpu_params = lm.init_params(cfg, seed=1, device="cpu")
+        prompt = np.random.RandomState(1).randint(1, cfg.vocab, size=(2, 40))
+        routing = SameRouting(torch, L) if cfg.attn_period else None
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            if routing:
+                (routing.record() if dev == "cpu"
+                 else routing.replay(routing.calls))
+            params = _to(cpu_params, dev)
+            last, cache = lm.prefill(
+                params, {"tokens": torch.as_tensor(prompt, device=dev)}, cfg,
+                max_len=48)
+            logits = [last[:, 0]]
+            tok = torch.as_tensor(prompt[:, -1:], device=dev)
+            for p in range(40, 44):
+                lg, cache = lm.decode_step(params, tok, cache, p, cfg)
+                logits.append(lg[:, 0])
+                tok = torch.as_tensor(prompt[:, :1], device=dev)
+            outs[dev] = torch.stack(logits).float().cpu()
+        if routing:
+            routing.restore()
+            log(f"  {cfg.name}: {routing.flips} router near-tie flips "
+                f"held to the CPU picks")
+        check(f"{cfg.name} prefill + 4 decode steps, logits (card kernels "
+              f"vs CPU plain versions)", max_err(outs["cuda"], outs["cpu"]))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 def main_path(torch, np, card: str):
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as F
-    from repro_torch.kernels.paged_attention import ops as P
     from repro_torch.models import lm
     from repro_torch.serving.server import AgentRequest, MultiWorkerServer
 
-    wrappers = {"flash_prefill": F.flash_prefill,
-                "paged_decode": P.paged_decode,
-                "paged_append": P.paged_append}
+    wrappers = all_wrappers()
     cfg = get_config("llama3.2-3b")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
@@ -328,15 +600,14 @@ def main_path(torch, np, card: str):
                           float(rng.uniform(0.1, 1.5))))
         reqs.append(AgentRequest(f"task-{i}", f"t{i % 2}", steps))
 
-    for w in wrappers.values():
-        w.launches = 0
+    reset(wrappers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     outs = [srv.run_task(r) for r in reqs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = counts(wrappers)
 
     st = srv.stats()
     log(f"  stats: prefill_tokens={st['prefill_tokens']} "
@@ -346,8 +617,8 @@ def main_path(torch, np, card: str):
         f"park_copy_bytes={st['park_copy_bytes']} "
         f"(== 0: {st['park_copy_bytes'] == 0})")
     log(f"  launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_prefill", "paged_decode", "paged_append"):
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
     if st["park_copy_bytes"] != 0:
         raise AssertionError("paged park copied device bytes")
@@ -374,7 +645,76 @@ def main_path(torch, np, card: str):
         f"per wall second (prefill included); max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
     profile_window(torch, np, srv, cfg, card)
+    del srv, params
+    gc.collect()                  # the runtime and its engines hold cycles
+    torch.cuda.empty_cache()
     return launches
+
+
+def decode_profile(torch, params, tok, cache, pos, cfg, card):
+    """Where a decode step's time goes: two more steps (after the counted
+    run, on a copy of the cache) under the profiler; device busy share and
+    the top kernels."""
+    from repro_torch.models import lm
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = {k: v.clone() for k, v in cache.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for step in range(2):
+            lm.decode_step(params, tok, cache, pos + step, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evts = prof.key_averages()
+    busy = sum(_dev_us(e) for e in evts) / 1e6
+    log(f"  profiled 2 decode steps [{card}]: wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% (idle "
+        f"{100 * (1 - busy / wall):.1f}%), "
+        f"{sum(e.count for e in evts if _dev_us(e))} kernel launches")
+    for e in sorted(evts, key=_dev_us, reverse=True)[:6]:
+        log(f"    device {_dev_us(e) / 1e3:9.3f} ms  calls {e.count:6d}  "
+            f"{e.key[:90]}")
+
+
+def all_wrappers():
+    from repro_torch.kernels.flash_attention import ops as F
+    from repro_torch.kernels.mamba_scan import ops as M
+    from repro_torch.kernels.paged_attention import ops as P
+    from repro_torch.kernels.rwkv6 import ops as R
+    return {"flash_prefill": F.flash_prefill,
+            "paged_decode": P.paged_decode, "paged_append": P.paged_append,
+            "wkv6": R.wkv6, "mamba_scan": M.mamba_scan}
+
+
+def ssm_paths(torch, np, card):
+    """Path A (rwkv6-7b, full width and depth, B=4) and path B
+    (jamba-v0.1-52b at full width, depth cut to one superblock of 8
+    layers, B=2: the whole model needs ~102 GB)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    wrappers = all_wrappers()
+    none = dict.fromkeys(wrappers, 0)
+    log("phase 5: path A, rwkv6-7b through lm.prefill / lm.decode_step")
+    cfg = get_config("rwkv6-7b")
+    n = cfg.n_layers
+    a, fails = serve_path(torch, np, card, wrappers, cfg, 4,
+                          {**none, "wkv6": n * 33}, {**none, "wkv6": n})
+    log("phase 6: path B, jamba-v0.1-52b (depth 8) through lm.prefill / "
+        "lm.decode_step")
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
+    b, fails_b = serve_path(torch, np, card, wrappers, cfg, 2,
+                            {**none, "mamba_scan": 7 * 33,
+                             "flash_prefill": 1, "paged_append": 32,
+                             "paged_decode": 32},
+                            {**none, "mamba_scan": 7, "flash_prefill": 1},
+                            routing=SameRouting(torch, L))
+    if fails + fails_b:
+        raise AssertionError("; ".join(fails + fails_b))
+    return {"path A rwkv6-7b": a, "path B jamba-v0.1-52b depth 8": b}
 
 
 def profile_window(torch, np, srv, cfg, card: str):
@@ -410,6 +750,246 @@ def profile_window(torch, np, srv, cfg, card: str):
     srv.runtime.check_conservation()
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: paths A (rwkv6-7b) and B (jamba) through lm.prefill /
+# lm.decode_step
+# ---------------------------------------------------------------------------
+# prefill + decode against the full forward: tests/test_models_smoke.py
+# holds the reference to 1e-2 / 2e-2 at tiny width, where logits stay
+# below 1; at full width they reach ~6, so the limits are taken relative
+# to the largest logit.  The prefill's last logits run the forward's own
+# arithmetic on the same prompt: TOL_FORWARD.  A decode step does not:
+# its GEMMs take B rows where the forward's take B*1056, so cuBLAS picks
+# other kernels, whose f32 sums round some bf16 activations the other
+# way; jamba's decode scan leaves h.C unrounded where the prefill scan
+# rounds it (the reference's own difference), and its attention runs
+# paged_decode, not flash.  Random-weight layers amplify such one-ulp
+# differences with depth.  Readings on an NVIDIA H100 80GB HBM3 at 700 W:
+# the forward on 1024 and on 1056 tokens differs at position 1023 by
+# 6.8e-2 of the largest logit through rwkv6-7b's 32 layers (1.6e-6
+# through jamba's 8), and is bit-exact when both take 1056 tokens (the
+# last 32 changed): the GEMM shape is the cause.  The carried states
+# differ from the sequence's prefill by 4.2e-3 (rwkv6-7b) and 1.2e-2
+# (jamba, its attention slot's k and v) at the first layer of each cache
+# entry, growing to 7e-2 and 2.6e-2 at the last.  The last decode step
+# read 6.2e-2 (rwkv6-7b) and 2.4e-2 (jamba) against the forward.
+# Faults planted in that step's inputs read, on the logits and on the
+# states: a lost state write 1.10 / 0.96 and 1.38 / 1.42, a zero cache
+# 1.20 / 1.12 and 1.46 / 1.00, a dropped shift_tm 0.48 / 0.12, a dropped
+# conv state 1.56 / 1.00, a position off by one 3.2e-2 / 1.14.  Each
+# limit below sits between the sound reading and the faults'; every
+# fault must be caught by one of the two checks, and the lost write and
+# the zero cache by the logits.
+TOL_FORWARD = 2e-2
+TOL_DECODE = {"ssm": 1.5e-1, "hybrid": 5e-2}
+TOL_STATE = {"ssm": 2e-2, "hybrid": 1e-1}
+MUST_MOVE_LOGITS = ("zero cache", "one lost state write")
+
+
+def reset(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def counts(wrappers):
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def _clone(cache):
+    return {key: t.clone() for key, t in cache.items()}
+
+
+def state_errs(cache, ref, n):
+    """Per layer, each cache entry's largest difference from ``ref``'s
+    over ``ref``'s largest magnitude there: rwkv's states per layer,
+    jamba's k and v (first n positions) per superblock and its conv and
+    ssm states per mamba layer."""
+    out = {}
+    for key, a in cache.items():
+        b = ref[key]
+        if key in ("k", "v"):
+            a, b = a[:, :, :n], b[:, :, :n]
+        elif key in ("conv", "ssm"):
+            a, b = a.flatten(0, 1), b.flatten(0, 1)
+        d = (a.float() - b.float()).abs().flatten(1).amax(1)
+        m = b.float().abs().flatten(1).amax(1).clamp_min(1e-30)
+        out[key] = (d / m).tolist()
+    return out
+
+
+def first_layer(errs) -> float:
+    """The largest error at the first layer of each cache entry (jamba's
+    k and v: its attention slot, after four mamba layers)."""
+    return max(e[0] for e in errs.values())
+
+
+def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
+               routing=None):
+    """``cfg`` at full width from seed-0 random bf16 weights made on the
+    card: B prompts of 1024 tokens through ``lm.prefill``, then 32 greedy
+    ``lm.decode_step``s carrying the state cache (counted: ``expect``
+    launches).  Then ``lm.forward_logits`` on the prompt and on the
+    1056-token sequences and ``lm.prefill`` on the sequences (each counted
+    apart: ``expect_fwd``), held to the prefill's logits, the last decode
+    step's logits and the carried states; then the planted faults.
+    Returns (the path's launch counts, the failed checks)."""
+    from repro_torch.models import lm
+
+    S, n_dec = 1024, 32
+    fails = []
+
+    def hold(name, err, tol, miss=False):
+        ok = err > tol if miss else err < tol
+        log(f"  {name}: {err:.4e} ({'must exceed' if miss else 'tol'} "
+            f"{tol:g}){'' if ok else '  FAILED'}")
+        if not ok:
+            fails.append(f"{cfg.name} {name}: {err} vs {tol}")
+
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} ({cfg.n_layers} layers) params ready in "
+        f"{time.perf_counter() - t0:.1f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompt = torch.as_tensor(np.random.RandomState(2).randint(
+        1, cfg.vocab, size=(B, S)), device="cuda")
+
+    if routing:
+        routing.record()
+    reset(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # 2 more positions: the profiled steps after the counted run
+    max_len = S + n_dec + 2
+    last, cache = lm.prefill(params, {"tokens": prompt}, cfg,
+                             max_len=max_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks, tok, kept = [prompt], last.argmax(-1), []
+    for step in range(n_dec):
+        if step >= n_dec - 2:        # the planted faults start from these
+            kept.append(_clone(cache))
+        toks.append(tok)
+        logits, cache = lm.decode_step(params, tok, cache, S + step, cfg)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    if routing:
+        routing.restore()
+    log(f"  launches (prefill + {n_dec} decode steps): {launches}")
+    if launches != expect:
+        raise AssertionError(f"{cfg.name}: launches {launches}, expected "
+                             f"{expect}")
+    log(f"  {cfg.name} [{card}]: B={B} x {S} prompt tokens; prefill "
+        f"{t_prefill:.3f} s, then {n_dec} decode steps "
+        f"{(wall - t_prefill) / n_dec * 1e3:.2f} ms each; wall "
+        f"{wall:.3f} s = {B * n_dec / wall:.2f} decoded tokens per wall "
+        f"second (prefill included); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+
+    decode_profile(torch, params, tok, cache, S + n_dec, cfg, card)
+
+    seq = torch.cat(toks, dim=1)                       # (B, S + n_dec)
+    picks = routing.by_position(B, S, n_dec) if routing else None
+    fwd = {}
+    for label, n, run in (
+            ("forward_logits on the prompt", S, lm.forward_logits),
+            ("forward_logits on the sequence", S + n_dec, lm.forward_logits),
+            ("prefill on the sequence", S + n_dec,
+             lambda p, b, c: lm.prefill(p, b, c, max_len=max_len))):
+        if routing:
+            routing.replay([(p[:, :n].flatten(0, 1), i[:, :n].flatten(0, 1))
+                            for p, i in picks])
+        reset(wrappers)
+        out = run(params, {"tokens": seq[:, :n]}, cfg)
+        torch.cuda.synchronize()
+        if routing:
+            routing.restore()
+        log(f"  {label} ({n} tokens), launches (apart): {counts(wrappers)}")
+        if counts(wrappers) != expect_fwd:
+            raise AssertionError(f"{cfg.name}: {label} launches "
+                                 f"{counts(wrappers)}, expected {expect_fwd}")
+        fwd[label] = out
+    ref_cache = fwd.pop("prefill on the sequence")[1]
+    ref = fwd["forward_logits on the sequence"]
+    if not bool(ref.isfinite().all()) or ref.shape != (B, S + n_dec,
+                                                       cfg.vocab):
+        raise AssertionError(f"{cfg.name}: forward logits {ref.shape}, "
+                             f"finite {bool(ref.isfinite().all())}")
+    if routing:
+        log(f"  forwards and prefill held to the served MoE picks: "
+            f"{routing.flips} near-tie flips over the three (recorded gaps "
+            f"{routing.gaps[:8]})")
+
+    # where the decode step's difference comes from (reported)
+    floor = rel_err(fwd["forward_logits on the prompt"][:, -1],
+                    ref[:, S - 1])
+    log(f"  forward on {S} vs {S + n_dec} tokens at position {S - 1}: "
+        f"{floor:.4e} of the largest logit")
+    if not routing:              # one shape: the same kernels on each row
+        other = seq.clone()
+        other[:, S:] = (other[:, S:] + 1) % cfg.vocab
+        same = rel_err(lm.forward_logits(params, {"tokens": other}, cfg)
+                       [:, S - 1], ref[:, S - 1])
+        log(f"  forward on {S + n_dec} tokens, its last {n_dec} changed, "
+            f"at position {S - 1}: {same:.4e} of the largest logit")
+    errs = state_errs(cache, ref_cache, S + n_dec)
+    for key, e in errs.items():
+        idx = sorted({i for i in (0, 1, 3, len(e) // 2, len(e) - 1)
+                      if i < len(e)})
+        log(f"  carried {key} vs prefill on the sequence, by layer "
+            + ", ".join(f"{i}: {e[i]:.2e}" for i in idx))
+
+    # the checks
+    ref_last = ref[:, -1]
+    for label, ours, theirs, tol in (
+            ("prefill last logits vs forward", last[:, 0],
+             fwd["forward_logits on the prompt"][:, -1], TOL_FORWARD),
+            ("last decode step logits vs forward", logits[:, 0], ref_last,
+             TOL_DECODE[cfg.family])):
+        agree = int((ours.argmax(-1) == theirs.argmax(-1)).sum())
+        log(f"  {label}: max_abs_err {max_err(ours, theirs):.4e}, largest "
+            f"logit {float(theirs.abs().max()):.3f}, argmax agrees on "
+            f"{agree}/{B} rows")
+        hold(f"{label} (relative)", rel_err(ours, theirs), tol)
+    hold("carried states vs prefill on the sequence, first layer of each "
+         "entry", first_layer(errs), TOL_STATE[cfg.family])
+
+    # planted faults in the last decode step's inputs: each must miss
+    pos = S + n_dec - 1
+    stale, before = kept
+    faults = {"zero cache": (lm.init_cache(cfg, B, max_len, device="cuda"),
+                             pos),
+              "one lost state write": (stale, pos)}
+    if cfg.family == "ssm":
+        faults["shift_tm dropped"] = (dict(_clone(before), shift_tm=(
+            torch.zeros_like(before["shift_tm"]))), pos)
+    else:
+        faults["conv state dropped"] = (dict(_clone(before), conv=(
+            torch.zeros_like(before["conv"]))), pos)
+        faults["position off by one"] = (_clone(before), pos - 1)
+    for name, (bad, p) in faults.items():
+        lg, bad = lm.decode_step(params, seq[:, -1:], bad, p, cfg)
+        got = {"logits": (rel_err(lg[:, 0], ref_last),
+                          TOL_DECODE[cfg.family]),
+               "states": (first_layer(state_errs(bad, ref_cache, S + n_dec)),
+                          TOL_STATE[cfg.family])}
+        seen = [what for what, (e, tol) in got.items() if e > tol]
+        log(f"  fault '{name}': " + ", ".join(
+            f"{what} {e:.4e} (limit {tol:g})" for what, (e, tol)
+            in got.items()) + f"; caught by {' and '.join(seen) or 'NEITHER'}")
+        if not seen or (name in MUST_MOVE_LOGITS and "logits" not in seen):
+            fails.append(f"{cfg.name} fault '{name}' caught by {seen}")
+    del fwd, ref, ref_cache, faults, kept, stale, before, bad, lg
+    del params, cache, logits, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, fails
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -420,8 +1000,11 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
 
-    # float32 products in full float32 (PyTorch's default, stated here)
+    # float32 products in full float32 (PyTorch's default, stated here),
+    # and bf16 products reduced in f32 (the parity phases compare against
+    # f32-accumulating references; ROADMAP.md asks it for the MoE router)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -441,13 +1024,18 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     log(f"phase 2: kernels vs plain versions on the card [{card}]")
-    kernels = [flash_phase(torch, gen), *paged_phase(torch, gen)]
-    log("phase 3: reference check on a small input")
+    kernels = [flash_phase(torch, gen), *paged_phase(torch, gen),
+               wkv6_phase(torch, gen), mamba_phase(torch, gen)]
+    log("phase 3: reference check on small inputs")
     reference_phase(torch, np)
-    log("phase 4: main path")
-    launches = main_path(torch, np, card)
+    ssm_reference_phase(torch, np)
+    log("phase 4: main path (llama3.2-3b served)")
+    by_path = {"serve llama3.2-3b": main_path(torch, np, card)}
+    by_path.update(ssm_paths(torch, np, card))
     for rec in kernels:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches_by_path"] = {p: n[rec["name"]] for p, n in
+                                   by_path.items() if n[rec["name"]]}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

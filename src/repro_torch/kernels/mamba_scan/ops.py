@@ -1,0 +1,113 @@
+"""Mamba selective scan: the Hopper kernel's wrapper and its plain version.
+
+``mamba_scan`` is the port of the Pallas kernel
+``repro/kernels/mamba_scan/kernel.py::mamba_scan_btd`` (wrapper
+``ops.py::mamba_scan``) and of the model's scans in
+``repro/models/mamba.py``: ``_ssm_scan`` (prefill, ``round_y=True``: each
+step's h.C is rounded to bf16 before D*x is added) and the decode branch
+of ``mamba_layer`` (``round_y=False``, from a carried state).  It takes
+A = -exp(A_log) as the model's scans do, an initial state, and returns
+the final one.  A CPU tensor goes to ``mamba_scan_plain``; a CUDA tensor
+launches ``csrc/mamba_scan.cu`` (x, dt, B, C bf16, A and D f32, d_state 8
+or 16), which reads B and C through their strides.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+F32 = torch.float32
+STATE_SIZES = (8, 16)
+
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+
+
+def mamba_scan_plain(x, dt, Bc, Cc, A, D, h0=None, *, round_y=False):
+    """The model's scan step by step, in f32.  dt*x is an f32 product:
+    the reference writes it in the inputs' type but XLA keeps the f32
+    value it casts to (excess precision), and the Pallas kernel forms it
+    in f32."""
+    B, T, di = x.shape
+    h = (torch.zeros(B, di, A.shape[1], dtype=F32, device=x.device)
+         if h0 is None else h0.to(F32))
+    Af = A.to(F32)[None]
+    dtf, Bf, Cf = dt.to(F32), Bc.to(F32), Cc.to(F32)
+    dbx = dtf * x.to(F32)
+    ys = []
+    for t in range(T):
+        dA = torch.exp(dtf[:, t, :, None] * Af)
+        h = dA * h + dbx[:, t, :, None] * Bf[:, t, None, :]
+        yt = torch.einsum("bis,bs->bi", h, Cf[:, t])
+        ys.append(yt.to(torch.bfloat16).to(F32) if round_y else yt)
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros(B, 0, di, dtype=F32, device=x.device))
+    return y + x.to(F32) * D.to(F32), h
+
+
+def _check(x, dt, Bc, Cc, A, D, h0) -> None:
+    B, T, di = x.shape
+    ds = A.shape[-1]
+    if dt.shape != x.shape or Bc.shape != (B, T, ds) \
+            or Cc.shape != Bc.shape or A.shape != (di, ds) \
+            or D.shape != (di,) or (h0 is not None
+                                    and h0.shape != (B, di, ds)):
+        raise ValueError(
+            f"mamba_scan wants x, dt (B,T,di), Bc, Cc (B,T,ds), A (di,ds), "
+            f"D (di,), h0 (B,di,ds); got {tuple(x.shape)} {tuple(dt.shape)} "
+            f"{tuple(Bc.shape)} {tuple(Cc.shape)} {tuple(A.shape)} "
+            f"{tuple(D.shape)} {None if h0 is None else tuple(h0.shape)}")
+    if len({t.device for t in (x, dt, Bc, Cc, A, D, h0)
+            if t is not None}) != 1:
+        raise ValueError("mamba_scan: inputs on different devices")
+
+
+def _cuda_checks(x, dt, Bc, Cc, A, D, h0) -> None:
+    ds = A.shape[-1]
+    if ds not in STATE_SIZES:
+        raise ValueError(f"mamba_scan kernel takes d_state {STATE_SIZES}, "
+                         f"not {ds}")
+    for name, t in (("x", x), ("dt", dt), ("Bc", Bc), ("Cc", Cc)):
+        if t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+            raise ValueError(f"mamba_scan kernel wants bf16 {name} with a "
+                             f"contiguous last dim; got {t.dtype} strides "
+                             f"{t.stride()}")
+    for name, t in (("A", A), ("D", D), ("h0", h0)):
+        if t is not None and (t.dtype != F32 or not t.is_contiguous()):
+            raise ValueError(f"mamba_scan kernel wants contiguous f32 "
+                             f"{name}; got {t.dtype}")
+
+
+def mamba_scan(x, dt, Bc, Cc, A, D, h0=None, *, round_y: bool = False):
+    """x, dt: (B, T, di); Bc, Cc: (B, T, ds); A: (di, ds) (already
+    -exp(A_log)); D: (di,); h0: (B, di, ds) or None (zeros).  Returns
+    (y (B, T, di) f32 without gating, h_T (B, di, ds) f32)."""
+    _check(x, dt, Bc, Cc, A, D, h0)
+    if x.device.type == "cpu":
+        return mamba_scan_plain(x, dt, Bc, Cc, A, D, h0, round_y=round_y)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_scan: unsupported device {x.device}")
+    _cuda_checks(x, dt, Bc, Cc, A, D, h0)
+    B, T, di = x.shape
+    ds = A.shape[1]
+    y = torch.empty(B, T, di, dtype=F32, device=x.device)
+    h_T = torch.empty(B, di, ds, dtype=F32, device=x.device)
+    fn = build.function("mamba_scan", "mamba_scan", _ARGTYPES)
+    strides = [s for t in (x, dt, Bc, Cc) for s in t.stride()[:2]]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                 A.data_ptr(), D.data_ptr(),
+                 None if h0 is None else h0.data_ptr(), y.data_ptr(),
+                 h_T.data_ptr(), B, T, di, ds, int(round_y), *strides,
+                 stream)
+    if err:
+        raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
+    mamba_scan.launches += 1
+    return y, h_T
+
+
+mamba_scan.launches = 0

@@ -1,0 +1,105 @@
+"""WKV6 recurrence: the Hopper kernel's wrapper and its plain version.
+
+``wkv6`` is the port of the Pallas kernel
+``repro/kernels/rwkv6/kernel.py::wkv6_bht`` (wrapper ``ops.py::wkv6``)
+and of the model's scan ``repro/models/rwkv.py::_wkv6_scan``, which the
+model path runs: it takes the model layout (B, T, H, dh), an initial state
+and returns the final one, so decode (T = 1) continues from a prefill.  A
+CPU tensor goes to ``wkv6_plain``; a CUDA tensor launches
+``csrc/wkv6.cu`` (r, k, v bf16, w f32, head size 16 or 64), which
+reads the inputs through their strides.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+F32 = torch.float32
+HEAD_SIZES = (16, 64)          # rwkv6-tiny, rwkv6-7b
+
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+
+
+def wkv6_plain(r, k, v, w, u, state0=None):
+    """The reference's ``_wkv6_scan`` step by step, all in f32."""
+    B, T, H, dh = r.shape
+    S = (torch.zeros(B, H, dh, v.shape[-1], dtype=F32, device=r.device)
+         if state0 is None else state0.to(F32))
+    rf, kf, vf, wf = (t.to(F32) for t in (r, k, v, w))
+    uf = u.to(F32)[None, :, :, None]
+    outs = []
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B,H,dk,dv)
+        outs.append(((S + uf * kv) * rf[:, t, :, :, None]).sum(dim=-2))
+        S = wf[:, t, :, :, None] * S + kv
+    out = (torch.stack(outs, dim=1) if outs else
+           torch.zeros(B, 0, H, v.shape[-1], dtype=F32, device=r.device))
+    return out, S
+
+
+def _check(r, k, v, w, u, state0) -> None:
+    B, T, H, dh = r.shape
+    if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape \
+            or u.shape != (H, dh) or (state0 is not None
+                                      and state0.shape != (B, H, dh, dh)):
+        raise ValueError(
+            f"wkv6 wants r, k, v, w (B,T,H,dh), u (H,dh), state0 "
+            f"(B,H,dh,dh); got {tuple(r.shape)} {tuple(k.shape)} "
+            f"{tuple(v.shape)} {tuple(w.shape)} {tuple(u.shape)} "
+            f"{None if state0 is None else tuple(state0.shape)}")
+    if len({t.device for t in (r, k, v, w, u, state0)
+            if t is not None}) != 1:
+        raise ValueError("wkv6: inputs on different devices")
+
+
+def _cuda_checks(r, k, v, w, u, state0) -> None:
+    dh = r.shape[-1]
+    if dh not in HEAD_SIZES:
+        raise ValueError(f"wkv6 kernel takes head size {HEAD_SIZES}, "
+                         f"not {dh}")
+    for name, t in (("r", r), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or t.stride(-1) != 1 \
+                or t.stride() != r.stride():
+            raise ValueError(f"wkv6 kernel wants bf16 {name} with a "
+                             f"contiguous last dim and r's strides; got "
+                             f"{t.dtype} strides {t.stride()}")
+    if w.dtype != F32 or w.stride(-1) != 1:
+        raise ValueError(f"wkv6 kernel wants f32 w with a contiguous last "
+                         f"dim; got {w.dtype} strides {w.stride()}")
+    for name, t in (("u", u), ("state0", state0)):
+        if t is not None and (t.dtype != F32 or not t.is_contiguous()):
+            raise ValueError(f"wkv6 kernel wants contiguous f32 {name}; "
+                             f"got {t.dtype}")
+
+
+def wkv6(r, k, v, w, u, state0=None):
+    """r, k, v, w: (B, T, H, dh); u: (H, dh); state0: (B, H, dh, dh) or
+    None (zeros).  Returns (out (B, T, H, dh) f32, S_T (B, H, dh, dh)
+    f32)."""
+    _check(r, k, v, w, u, state0)
+    if r.device.type == "cpu":
+        return wkv6_plain(r, k, v, w, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    _cuda_checks(r, k, v, w, u, state0)
+    B, T, H, dh = r.shape
+    out = torch.empty(B, T, H, dh, dtype=F32, device=r.device)
+    s_T = torch.empty(B, H, dh, dh, dtype=F32, device=r.device)
+    fn = build.function("wkv6", "wkv6", _ARGTYPES)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), None if state0 is None else state0.data_ptr(),
+                 out.data_ptr(), s_T.data_ptr(), B, T, H, dh,
+                 *r.stride()[:3], *w.stride()[:3], stream)
+    if err:
+        raise RuntimeError(f"wkv6 launch failed: CUDA error {err}")
+    wkv6.launches += 1
+    return out, s_T
+
+
+wkv6.launches = 0

@@ -1,11 +1,12 @@
-"""Main-path model primitives in PyTorch: the twins of the functions of
-``repro.models.layers`` that the serving engine runs for the uniform GQA
-decoder.
+"""Model primitives in PyTorch: the twins of the functions of
+``repro.models.layers`` that the port's model paths run (the uniform GQA
+decoder, rwkv6's group norm, jamba's attention slot and dense-impl MoE).
 
 Attention goes through the port's kernels: ``gqa_attention_full`` calls
-``flash_prefill`` and ``gqa_attention_decode_paged`` calls
-``paged_append`` then ``paged_decode``, each of which takes its plain
-PyTorch version on a CPU tensor.  The plain attention (``decode_attention``,
+``flash_prefill``; ``gqa_attention_decode_paged`` and
+``gqa_attention_decode`` (over a contiguous per-layer cache, read as one
+block per row) call ``paged_append`` then ``paged_decode``.  Each kernel
+takes its plain PyTorch version on a CPU tensor.  The plain attention (``decode_attention``,
 ``paged_kv_gather``, ``expand_kv``) lives beside the kernels in
 ``repro_torch.kernels``.  Projections and the FFN stay ``torch.einsum`` /
 ``matmul``, as the reference leaves them to XLA.
@@ -33,6 +34,17 @@ def rms_norm(x, scale, eps: float = 1e-5):
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return pin_bf16((out * scale.float()).to(x.dtype))
+
+
+def group_norm_heads(x, scale, n_heads: int, eps: float = 1e-5):
+    """Per-head group norm over the trailing dim split into n_heads groups
+    (RWKV's ln_x), in f32, returned as bf16."""
+    orig = x.shape
+    x = x.reshape(*orig[:-1], n_heads, orig[-1] // n_heads).float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(orig)
+    return (x * scale.float()).to(torch.bfloat16)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -103,6 +115,82 @@ def gqa_attention_decode_paged(x, p, cfg, k_pool, v_pool, tables, pos,
     return torch.einsum("bhx,hxd->bd", y, p["wo"])[:, None], k_pool, v_pool
 
 
+def _contiguous_table(pos):
+    """A per-layer contiguous cache (B, max_len, K, dh) read as a pool of B
+    blocks of max_len tokens: block table ``arange(B)[:, None]`` and, for a
+    new token at ``pos`` (B,) int32, lens ``pos + 1``."""
+    B = pos.shape[0]
+    tables = torch.arange(B, dtype=torch.int32, device=pos.device)[:, None]
+    return tables, pos + 1
+
+
+def _cache_insert(k_cache, v_cache, k, v, pos):
+    """Write row b's (B, 1, K, dh) k/v into the contiguous caches at
+    position ``pos[b]``, in place, through ``paged_append`` (block b,
+    offset pos).  The reference's dynamic_update_slice returns new caches
+    and clamps a position past the end; the append drops it."""
+    B = k.shape[0]
+    ids = torch.arange(B, dtype=torch.int32, device=k.device)
+    return paged_append(k_cache, v_cache, k[:, 0].contiguous(),
+                        v[:, 0].contiguous(), ids, pos)
+
+
+def gqa_attention_decode(x, p, cfg, k_cache, v_cache, pos):
+    """One-token decode over contiguous caches (B, max_len, K, dh), updated
+    in place.  pos: (B,) int32 position of the new token.  Returns
+    (y, k_cache, v_cache)."""
+    q, k, v = gqa_qkv(x, p, cfg, pos[:, None])
+    k_cache, v_cache = _cache_insert(k_cache, v_cache, k, v, pos)
+    y = paged_decode(q[:, 0].contiguous(), k_cache, v_cache,
+                     *_contiguous_table(pos), window=cfg.sliding_window)
+    return torch.einsum("bhx,hxd->bd", y, p["wo"])[:, None], k_cache, v_cache
+
+
 def ffn_swiglu(x, p):
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: the reference's dense impl (every expert computed, then gated)
+# ---------------------------------------------------------------------------
+def moe_router(x2d, router_w, top_k: int):
+    """Top-k experts by probability; equal probabilities (frequent: the
+    logits are rounded to bf16) go to the lower expert id first, as
+    ``lax.top_k`` orders them (a stable sort; ``torch.topk`` promises no
+    order among equals)."""
+    logits = (x2d @ router_w).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :top_k], top_e[:, :top_k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return top_p, top_e
+
+
+def moe_dense_ref(x2d, p, cfg):
+    """Computes every expert then gates: the reference's oracle, which its
+    engine and model paths run under ``moe_impl="dense"``.  The expert
+    products are batched over the expert axis of the weights, with no
+    copy of them."""
+    top_p, top_e = moe_router(x2d, p["router"], cfg.top_k)
+    h = F.silu(torch.matmul(x2d, p["w1"])) * torch.matmul(x2d, p["w3"])
+    y_e = torch.matmul(h, p["w2"])                        # (E, T, d)
+    gate = torch.zeros(x2d.shape[0], cfg.n_experts, dtype=F32,
+                       device=x2d.device).scatter_add_(1, top_e, top_p)
+    y = torch.einsum("etd,te->td", y_e.float(), gate)
+    return y.to(x2d.dtype)
+
+
+def moe_block(x, p, cfg, impl: str = "dense"):
+    """MoE FFN + optional shared experts.  Only the dense impl is ported;
+    expert parallelism (``moe_ep``) comes with the sharding slice."""
+    if impl != "dense":
+        raise NotImplementedError(f"moe_block impl={impl!r}: only the dense "
+                                  f"impl is ported; moe_ep comes with the "
+                                  f"sharding slice")
+    B, S, d = x.shape
+    y = moe_dense_ref(x.reshape(-1, d), p, cfg).reshape(B, S, d)
+    if cfg.n_shared_experts:
+        y = y + ffn_swiglu(x, {"w1": p["ws1"], "w3": p["ws3"],
+                               "w2": p["ws2"]})
+    return y

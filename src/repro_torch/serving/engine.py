@@ -34,6 +34,22 @@ from repro_torch.serving.kvcache import PagedKVPool
 _PREFILL_BUCKET = 32
 
 
+def check_engine_family(cfg: ModelConfig) -> None:
+    """The families the engine serves.  Like the reference's engine
+    (``repro/serving/engine.py:103``) it refuses what has no GQA (k, v)
+    cache: ssm, hybrid, enc-dec and MLA.  Of the decoder-only KV families
+    the port serves dense; moe and vlm come in a later slice."""
+    if cfg.enc_dec or cfg.family not in ("dense", "moe", "vlm") \
+            or cfg.use_mla:
+        raise ValueError(f"{cfg.name} ({cfg.family}): the engine serves "
+                         f"decoder-only GQA KV families, as the reference "
+                         f"engine does")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): the port's "
+                                  f"engine serves the dense family; moe and "
+                                  f"vlm come in a later slice")
+
+
 @dataclasses.dataclass
 class SlotState:
     session_id: Optional[str] = None
@@ -50,7 +66,7 @@ class Engine:
             raise NotImplementedError(
                 "Engine(paged=False), the reference's gather oracle, is a "
                 "later slice of the port")
-        lm.check_family(cfg)
+        check_engine_family(cfg)
         assert max_len % block_size == 0, \
             "paged decode needs max_len to be a whole number of blocks"
         self.cfg = cfg

@@ -5,13 +5,19 @@ imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerance: bf16 2e-2 (tests/test_kernels.py); the append moves bits and
-must match exactly."""
+must match exactly.  The two recurrences (wkv6, mamba_scan) keep f32
+state and sum in another order than their plain versions: 1e-3 on their
+outputs and final states (tests/test_kernels.py's wkv6 tolerance).
+Where mamba_scan rounds h.C to bf16, its outputs must equal the plain
+version's but on under 1 % of elements, each one bf16 step of h.C off."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as F  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as M  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as P  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as R  # noqa: E402
 
 TOL = 2e-2
 
@@ -102,6 +108,120 @@ def test_engine_on_card_matches_cpu(cuda):
     assert engines["cuda"].pool.audit_blocks() == []
     for x, y in ((a.k_pool, b.k_pool), (a.v_pool, b.v_pool)):
         assert float((x.float() - y.float().cpu()).abs().max()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("T", [1, 37, 96])
+def test_wkv6_kernel_matches_plain_on_card(cuda, dh, T):
+    """Model layout, a non-zero state in, and r/k/v read as strided views
+    of one wider tensor; outputs and final state against the plain scan."""
+    g = torch.Generator(device=cuda).manual_seed(dh + T)
+    B, H = 2, 3
+    rkv = (torch.randn(B, T, 3, H, dh, generator=g, device=cuda) * 0.5
+           ).to(torch.bfloat16)
+    r, k, v = rkv[:, :, 0], rkv[:, :, 1], rkv[:, :, 2]
+    w = torch.sigmoid(torch.randn(B, T, H, dh, generator=g, device=cuda)) \
+        * 0.5 + 0.45
+    u = torch.randn(H, dh, generator=g, device=cuda) * 0.3
+    s0 = torch.randn(B, H, dh, dh, generator=g, device=cuda)
+    before = R.wkv6.launches
+    out, s_T = R.wkv6(r, k, v, w, u, s0)
+    assert R.wkv6.launches == before + 1
+    ref, ref_T = R.wkv6_plain(r, k, v, w, u, s0)
+    assert float((out - ref).abs().max()) < 1e-3
+    assert float((s_T - ref_T).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("T", [1, 45])
+@pytest.mark.parametrize("round_y", [False, True])
+def test_mamba_scan_kernel_matches_plain_on_card(cuda, ds, T, round_y):
+    """A ragged channel count, B and C as strided slices of one projection
+    (as mamba_layer passes them), a non-zero state in; both rounding
+    modes."""
+    g = torch.Generator(device=cuda).manual_seed(ds + T)
+    B, di, dtr = 2, 200, 5
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    x = mk(B, T, di).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(mk(B, T, di) - 2).to(torch.bfloat16)
+    dbc = mk(B, T, dtr + 2 * ds).to(torch.bfloat16)
+    Bc, Cc = dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:]
+    A = -torch.arange(1, ds + 1, device=cuda, dtype=torch.float32
+                      ).expand(di, ds).contiguous()
+    D = mk(di)
+    h0 = mk(B, di, ds)
+    before = M.mamba_scan.launches
+    y, h_T = M.mamba_scan(x, dt, Bc, Cc, A, D, h0, round_y=round_y)
+    assert M.mamba_scan.launches == before + 1
+    ref, ref_T = M.mamba_scan_plain(x, dt, Bc, Cc, A, D, h0,
+                                    round_y=round_y)
+    if round_y:
+        steps, share = _rounding_errs(y, ref, x, D)
+        assert steps <= 1.0001 and share < 1e-2, (steps, share)
+    else:
+        assert float((y - ref).abs().max()) < 1e-3
+    assert float((h_T - ref_T).abs().max()) < 1e-3
+
+
+def _rounding_errs(y, ref, x, D):
+    """The rounding mode's y = bf16(h.C) + D*x against the plain version's:
+    equal to f32 rounding where the two h.C sums round to the same bf16
+    value, one bf16 step of h.C apart where they straddle a rounding
+    boundary.  Returns (the largest difference in bf16 steps of h.C, the
+    share of elements that differ at all); a kernel that ignored the flag
+    would differ on nearly every element."""
+    xD = x.float() * D.float()
+    d = (y - ref).abs()
+    slack = 8 * torch.finfo(torch.float32).eps * (ref.abs() + xD.abs())
+    _, e = torch.frexp((ref - xD).abs() + d)
+    step = torch.ldexp(torch.ones_like(d), e - 8)
+    return (float(((d - slack).clamp_min(0) / step).max()),
+            float((d > slack).float().mean()))
+
+
+@pytest.mark.cuda
+def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    r = torch.zeros(1, 4, 2, 16, device=cuda)                # float32 r
+    w = torch.zeros(1, 4, 2, 16, device=cuda)
+    u = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        R.wkv6(r, r, r, w, u)
+    rb = torch.zeros(1, 4, 2, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head size"):
+        R.wkv6(rb, rb, rb, w[..., :8], u[:, :8])
+    x = torch.zeros(1, 4, 32, device=cuda, dtype=torch.bfloat16)
+    bc = torch.zeros(1, 4, 4, device=cuda, dtype=torch.bfloat16)
+    A = torch.zeros(32, 4, device=cuda)
+    with pytest.raises(ValueError, match="d_state"):
+        M.mamba_scan(x, x, bc, bc, A, torch.zeros(32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_contiguous_cache_decode_through_paged_kernels(cuda):
+    """jamba's decode attention: the (B, max_len, K, dh) cache as B blocks
+    of max_len tokens, through paged_append + paged_decode, against the
+    plain versions (which the CPU tests hold against the reference's
+    gqa_attention_decode)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, S, K, dh, H = 2, 1056, 8, 128, 32
+    kc = torch.randn(B, S, K, dh, generator=g, device=cuda).to(torch.bfloat16)
+    vc = torch.randn(B, S, K, dh, generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randn(B, H, dh, generator=g, device=cuda).to(torch.bfloat16)
+    kn = torch.randn(B, 1, K, dh, generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([1030, 7], device=cuda, dtype=torch.int32)
+    kc2, vc2 = kc.clone(), vc.clone()
+    L._cache_insert(kc, vc, kn, kn, pos)
+    out = P.paged_decode(q, kc, vc, *L._contiguous_table(pos))
+    rows = torch.arange(B, device=cuda)
+    kc2[rows, pos.long()] = kn[:, 0]
+    vc2[rows, pos.long()] = kn[:, 0]
+    tables, lens = L._contiguous_table(pos)
+    ref = P.paged_decode_plain(q, kc2, vc2, tables, lens)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    assert float((out.float() - ref.float()).abs().max()) < TOL
 
 
 def _to(tree, device):

@@ -60,11 +60,72 @@ def test_port_refuses_what_later_slices_port():
     from repro_torch.configs import mixtral_8x22b
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         lm.init_params(mixtral_8x22b.tiny(), 0, device="cpu")
     params = lm.init_params(get_config("micro"), 0, device="cpu")
     with pytest.raises(NotImplementedError, match="gather oracle"):
         Engine(get_config("micro"), params, paged=False)
+
+
+@pytest.mark.parametrize("mod", ["mixtral_8x22b", "deepseek_v2_236b",
+                                 "seamless_m4t_large_v2", "llava_next_34b"])
+def test_model_functions_still_refuse_moe_mla_encdec_vlm(mod):
+    """Uniform moe (mixtral), MLA (deepseek-v2), enc-dec (seamless) and
+    vlm (llava) are later slices: every model entry point raises."""
+    import importlib
+    from repro_torch.models import lm
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    for call in (lambda: lm.init_params(cfg, 0, device="cpu"),
+                 lambda: lm.init_cache(cfg, 1, 8, device="cpu"),
+                 lambda: lm.prefill({}, {"tokens": tokens}, cfg),
+                 lambda: lm.forward_logits({}, {"tokens": tokens}, cfg),
+                 lambda: lm.decode_step({}, tokens[:, :1], {}, 0, cfg)):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            call()
+
+
+@pytest.mark.parametrize("name", ["micro", "llama3.2-3b"])
+def test_dense_decode_step_is_a_later_slice(name):
+    """Dense models decode through decode_step_paged; decode_step over a
+    contiguous dense cache is not ported yet and says so."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    tokens = torch.zeros(1, 1, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="decode_step_paged"):
+        lm.decode_step({}, tokens, {}, 0, get_config(name))
+
+
+@pytest.mark.parametrize("mod", ["rwkv6_7b", "jamba_v0_1_52b"])
+def test_model_functions_take_ssm_and_hybrid(mod):
+    import importlib
+    from repro_torch.models import lm
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
+    params = lm.init_params(cfg, 0, device="cpu")
+    tokens = torch.arange(1, 7, dtype=torch.long)[None]
+    last, cache = lm.prefill(params, {"tokens": tokens}, cfg, max_len=8)
+    logits, _ = lm.decode_step(params, tokens[:, :1], cache, 6, cfg)
+    assert last.shape == logits.shape == (1, 1, cfg.vocab)
+    assert sorted(cache) == sorted(lm.init_cache(cfg, 1, 8, device="cpu"))
+    with pytest.raises(ValueError, match="uniform GQA-cache"):
+        lm.decode_step_paged(params, tokens[:, :1], None, None, None, None,
+                             None, None, cfg)
+
+
+@pytest.mark.parametrize("mod", ["rwkv6_7b", "jamba_v0_1_52b"])
+def test_engine_refuses_ssm_and_hybrid_as_the_reference_does(mod):
+    """The model functions take ssm and hybrid, the engine does not: the
+    reference's engine asserts on them (repro/serving/engine.py:103)."""
+    import importlib
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
+    with pytest.raises(ValueError, match="decoder-only GQA KV"):
+        Engine(cfg, lm.init_params(cfg, 0, device="cpu"))
+    ref_cfg = importlib.import_module(f"repro.configs.{mod}").tiny()
+    from repro.serving.engine import Engine as RefEngine
+    with pytest.raises(AssertionError, match="decoder-only KV"):
+        RefEngine(ref_cfg, None)
 
 
 def test_wrappers_raise_on_devices_they_do_not_take():
