@@ -11,9 +11,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    at once) into ``build/kernels/``.
 2. Every kernel against its plain PyTorch version on the card: flash
    prefill at llama3.2-3b width (S=1024, H=24, K=8, D=128; causal, and
-   causal + window 32) and at micro width (D=16, and a ragged S); paged
-   append + decode at B=4, H=24, K=8, dh=128, block 16, lens up to 2048
-   with a drop-sentinel row (window 0 and 32), and at dh=16 (bf16, 2e-2);
+   causal + window 32), at jamba's attention slot (B=2, H=32) and at
+   micro width (D=16, and a ragged S); paged append + decode at B=4,
+   H=24, K=8, dh=128, block 16, lens up to 2048 with a drop-sentinel row
+   (window 0 and 32), and at dh=16; paged decode also at the served
+   path's real shape (one live row of 1056 tokens, three idle rows) and
+   at jamba's contiguous cache (one block of 1058 tokens a row) (bf16,
+   2e-2);
    wkv6 at rwkv6-7b's prefill (B=4, T=1024, H=64, dh=64) and decode (T=1,
    a state in) shapes and at head size 16; mamba_scan at jamba's prefill
    (B=2, T=1024, di=8192, ds=16, h.C rounded to bf16) and decode (T=1, a
@@ -22,7 +26,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    most 1 % of elements, each at most one bf16 step of h.C off).  Each kernel
    is timed with CUDA events beside its plain version, its bound and, for
    flash, ``scaled_dot_product_attention`` (a yardstick the port never
-   calls).
+   calls); flash and paged decode also at the further shapes, whose
+   times go into the JSON line's ``more_shapes``.  The profiler's device
+   time of flash and paged decode counts every kernel their wrappers
+   launch, and fails if another kernel runs in the window.
 3. Reference checks on small inputs: micro's prefill and paged-decode
    logits, and rwkv6-tiny's and jamba-tiny's prefill + 4 ``decode_step``s,
    through the kernels on the card against the plain versions on the CPU.
@@ -56,6 +63,7 @@ CUDA the script exits non-zero before any result.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import subprocess
@@ -102,7 +110,9 @@ def timed(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 def device_ms(torch, fn, kernel: str, iters: int = 10):
     """Per-call device time of the kernels whose name contains ``kernel``,
     from the profiler's CUDA trace; None when the trace shows no device
-    time (the event timing above then stands alone)."""
+    time (the event timing above then stands alone).  Any other kernel in
+    the window fails the run: a filter that missed a kernel the wrapper
+    launches would flatter the time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -110,7 +120,11 @@ def device_ms(torch, fn, kernel: str, iters: int = 10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages() if kernel in e.key)
+    evts = [e for e in prof.key_averages() if _dev_us(e)]
+    other = sorted({e.key for e in evts if kernel not in e.key})
+    if other:
+        raise AssertionError(f"{kernel}: the timed window also ran {other}")
+    us = sum(_dev_us(e) for e in evts if kernel in e.key)
     return us / iters / 1e3 if us else None
 
 
@@ -143,54 +157,63 @@ def check(name: str, err: float, tol: float = TOL_BF16) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def flash_phase(torch, gen):
+def flash_phase(torch, gen, gen_more):
+    """Flash prefill against its plain version at llama3.2-3b's prefill
+    (causal, and causal + window 32), jamba's attention slot and micro's
+    head size (D=16, and a ragged S); timed at llama3.2-3b's and jamba's
+    shapes beside ``scaled_dot_product_attention``.  Jamba's inputs come
+    from ``gen_more``, so the later-added shapes leave the draws of the
+    earlier checks as they were."""
     from repro_torch.kernels.flash_attention import ops as F
 
-    def inputs(B, S, H, K, D):
-        mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
+    def inputs(g, B, S, H, K, D):
+        mk = lambda *s: torch.randn(s, generator=g, device="cuda",  # noqa
                                     dtype=torch.float32).to(torch.bfloat16)
         return mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D)
 
-    errs, rec = [], None
-    for (B, S, H, K, D), window in [((1, 1024, 24, 8, 128), 0),
-                                    ((1, 1024, 24, 8, 128), 32),
-                                    ((1, 256, 4, 2, 16), 0),
-                                    ((2, 200, 4, 2, 16), 32)]:
-        q, k, v = inputs(B, S, H, K, D)
+    errs, times = [], []
+    for (B, S, H, K, D), window, g in [
+            ((1, 1024, 24, 8, 128), 0, gen),       # llama3.2-3b: main path
+            ((1, 1024, 24, 8, 128), 32, gen),
+            ((2, 1024, 32, 8, 128), 0, gen_more),  # jamba's attention slot
+            ((1, 256, 4, 2, 16), 0, gen),
+            ((2, 200, 4, 2, 16), 32, gen)]:
+        timed_here = window == 0 and D == 128
+        q, k, v = inputs(g, B, S, H, K, D)
         out = F.flash_prefill(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         ref = F.flash_prefill_plain(q, k, v, causal=True, window=window)
         errs.append(check(f"flash B={B} S={S} H={H} K={K} D={D} "
                           f"window={window}", max_err(out, ref)))
-        if rec is None:        # the main path's shape: llama3.2-3b, causal
-            ms = timed(torch, lambda: F.flash_prefill(q, k, v, causal=True))
-            plain_ms = timed(torch, lambda: F.flash_prefill_plain(
-                q, k, v, causal=True), iters=5)
-            lib_ms = timed(torch, lambda: torch.nn.functional
-                           .scaled_dot_product_attention(
-                               q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), is_causal=True,
-                               enable_gqa=True))
-            dev = device_ms(torch, lambda: F.flash_prefill(
-                q, k, v, causal=True), "flash_prefill_kernel")
-            pairs = B * H * S * (S + 1) // 2
-            nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
-            bms, by = bound(nbytes, 4 * D * pairs)
-            rec = {"name": "flash_prefill", "route": "cuda",
-                   "source": "src/repro_torch/csrc/flash_attention.cu",
-                   "replaces": "src/repro/kernels/flash_attention/"
-                               "kernel.py:73",
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                   "bound_by": by, "library_ms": lib_ms, "device_ms": dev,
-                   "shape": f"B={B} S={S} H={H} K={K} D={D} causal"}
-            log(f"  flash time {ms:.4f} ms (device {dev} ms)  plain "
-                f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} "
-                f"ms ({by})")
-    rec["max_abs_err"] = max(errs)
-    return rec
+        if not timed_here:
+            continue
+        ms = timed(torch, lambda: F.flash_prefill(q, k, v, causal=True))
+        plain_ms = timed(torch, lambda: F.flash_prefill_plain(
+            q, k, v, causal=True), iters=5)
+        lib_ms = timed(torch, lambda: torch.nn.functional
+                       .scaled_dot_product_attention(
+                           q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), is_causal=True,
+                           enable_gqa=True))
+        dev = device_ms(torch, lambda: F.flash_prefill(q, k, v, causal=True),
+                        "flash_prefill_kernel")
+        pairs = B * H * S * (S + 1) // 2
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
+        bms, by = bound(nbytes, 4 * D * pairs)
+        times.append({"shape": f"B={B} S={S} H={H} K={K} D={D} causal",
+                      "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
+        log(f"  flash time {ms:.4f} ms (device {dev} ms)  plain "
+            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.4f} "
+            f"ms ({by})")
+    main, *more = times
+    return {"name": "flash_prefill", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+            **main, "more_shapes": more, "max_abs_err": max(errs)}
 
 
-def paged_phase(torch, gen):
+def paged_phase(torch, gen, gen_more):
     from repro_torch.kernels.paged_attention import ops as P
 
     recs = {}
@@ -273,9 +296,59 @@ def paged_phase(torch, gen):
         log(f"  paged append time {ams:.4f} ms (device {adev} ms)  plain "
             f"{aplain:.4f} ms  "
             f"bound {abms:.6f} ms ({aby})")
+    recs["paged_decode"]["more_shapes"] = paged_more_shapes(
+        torch, gen_more, errs["paged_decode"])
     for name, rec in recs.items():
         rec["max_abs_err"] = max(errs[name])
     return [recs["paged_decode"], recs["paged_append"]]
+
+
+def paged_more_shapes(torch, gen, errs):
+    """paged_decode at the served path's real shape (B=4: one live row of
+    1056 tokens, three idle rows of len 1 on table rows of zeros, nb=128)
+    and at jamba's contiguous cache (B=2, one block of 1058 tokens a row,
+    nb=1, lens 1056 and 1025): checked, timed, each beside its bound."""
+    from repro_torch.kernels.paged_attention import ops as P
+
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
+                                dtype=torch.float32).to(torch.bfloat16)
+    out_recs = []
+    for label, B, H, K, dh, block, nb, lens in [
+            ("served", 4, 24, 8, 128, 16, 128, [1056, 1, 1, 1]),
+            ("jamba contiguous", 2, 32, 8, 128, 1058, 1, [1056, 1025])]:
+        nblocks = B * nb + 1
+        q, kp, vp = mk(B, H, dh), mk(nblocks, block, K, dh), \
+            mk(nblocks, block, K, dh)
+        tables = torch.zeros(B, nb, dtype=torch.int32, device="cuda")
+        tables[0] = torch.arange(1, nb + 1, dtype=torch.int32,
+                                 device="cuda")
+        if nb == 1:                    # the contiguous cache: block b
+            tables[:, 0] = torch.arange(B, dtype=torch.int32, device="cuda")
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = P.paged_decode(q, kp, vp, tables, lens_t)
+        torch.cuda.synchronize()
+        ref = P.paged_decode_plain(q, kp, vp, tables, lens_t)
+        errs.append(check(f"paged decode {label} B={B} H={H} K={K} "
+                          f"block={block} nb={nb} lens={lens}",
+                          max_err(out, ref)))
+        ms = timed(torch, lambda: P.paged_decode(q, kp, vp, tables, lens_t))
+        dev = device_ms(torch, lambda: P.paged_decode(q, kp, vp, tables,
+                                                      lens_t),
+                        "paged_decode_kernel")
+        n_tok = sum(lens)
+        bms, by = bound(2 * B * H * dh * 2 + B * nb * 4 + B * 4
+                        + n_tok * K * dh * 2 * 2, 4 * H * dh * n_tok)
+        span, splits = P.split_schedule(
+            nb, block, B * K,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        out_recs.append({
+            "shape": f"{label}: B={B} H={H} K={K} dh={dh} block={block} "
+                     f"nb={nb} lens={lens}",
+            "ms": ms, "device_ms": dev, "bound_ms": bms, "bound_by": by,
+            "span": span, "splits": splits})
+        log(f"  paged decode {label} time {ms:.4f} ms (device {dev} ms)  "
+            f"bound {bms:.5f} ms ({by}); span {span}, {splits} splits")
+    return out_recs
 
 
 def wkv6_phase(torch, gen):
@@ -742,6 +815,11 @@ def profile_window(torch, np, srv, cfg, card: str):
     for e in sorted(evts, key=_dev_us, reverse=True)[:12]:
         log(f"    device {_dev_us(e) / 1e3:9.3f} ms  calls {e.count:6d}  "
             f"{e.key[:90]}")
+    for name in ("paged_decode_kernel", "flash_prefill_kernel"):
+        mine = [e for e in evts if name in e.key and _dev_us(e)]
+        t = sum(_dev_us(e) for e in mine) / 1e6
+        log(f"  {name}: {t * 1e3:.3f} ms in {sum(e.count for e in mine)} "
+            f"calls = {100 * t / busy:.1f}% of the device's busy time")
     host = [e for e in evts if not _dev_us(e)]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:8]:
@@ -1020,11 +1098,20 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+            elif "entry function" in line:
+                log(f"  ptxas {name}: {line.split(chr(39))[1]}")
+    smem = build.function("flash_attention", "flash_prefill_smem_bytes",
+                          [ctypes.c_int])
+    log("  flash_prefill_kernel dynamic shared memory per CTA: "
+        + ", ".join(f"D={d} {smem(d)} bytes" for d in (16, 64, 128)))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    gen_more = torch.Generator(device="cuda")   # the later-added shapes
+    gen_more.manual_seed(1)
     log(f"phase 2: kernels vs plain versions on the card [{card}]")
-    kernels = [flash_phase(torch, gen), *paged_phase(torch, gen),
+    kernels = [flash_phase(torch, gen, gen_more),
+               *paged_phase(torch, gen, gen_more),
                wkv6_phase(torch, gen), mamba_phase(torch, gen)]
     log("phase 3: reference check on small inputs")
     reference_phase(torch, np)

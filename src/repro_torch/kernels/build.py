@@ -92,3 +92,20 @@ def function(lib: str, fn: str, argtypes: Sequence):
         f.restype = ctypes.c_int
         _FUNCS[key] = f
     return _FUNCS[key]
+
+
+def launch(device, fn, *args):
+    """Call ``fn(*args, stream)`` with ``device`` current and its current
+    stream: the C functions launch on the runtime's current device.  The
+    raw stream handle and the device check cost far less than
+    ``torch.cuda.current_stream`` and a device context, which matters on
+    the host-bound decode loop."""
+    import torch
+
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)

@@ -5,7 +5,8 @@
 its wrapper ``ops.py::flash_attention``.  It takes model-layout tensors,
 q (B, Sq, H, D) and k/v (B, Sk, K, D), and returns (B, Sq, H, D).  A CPU
 tensor goes to ``flash_prefill_plain``; a CUDA tensor launches
-``csrc/flash_attention.cu`` (bf16, head_dim 16, 64 or 128), which reads
+``csrc/flash_attention.cu`` (bf16, head_dim 16, 64 or 128: wgmma on the
+tensor cores, K/V streamed by TMA through a two-stage ring), which reads
 KV head h // (H/K) in place instead of expanding GQA.
 """
 from __future__ import annotations
@@ -91,11 +92,13 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
                              f"16-byte aligned bf16 {name}; got {t.dtype}")
     out = torch.empty_like(q)
     fn = build.function("flash_attention", "flash_prefill", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Sk, H, K, D, int(causal), int(window),
-                 1.0 / math.sqrt(D), stream)
+    err = build.launch(q.device, fn, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
+                       int(causal), int(window), 1.0 / math.sqrt(D))
+    if err < 0:
+        raise RuntimeError(f"flash_prefill: the K/V tensor maps could not be "
+                           f"made (code {err}: -1 no cuTensorMapEncodeTiled "
+                           f"in libcuda, -1000 - n CUresult n)")
     if err:
         raise RuntimeError(f"flash_prefill launch failed: CUDA error {err}")
     flash_prefill.launches += 1

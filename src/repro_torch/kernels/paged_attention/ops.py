@@ -7,9 +7,10 @@ window added.  ``paged_append`` is the port of the ``mode="drop"``
 scatter in ``ops.py::paged_decode_step`` / ``layers.paged_kv_update``.
 A CPU tensor goes to the plain version; a CUDA tensor launches
 ``csrc/paged_attention.cu`` (bf16, head_dim 16, 64 or 128, int32
-indices).  Torch indexing raises (or device-asserts) on the engine's
-out-of-range drop sentinel, which is why the append is a kernel and not
-``index_put_``.
+indices).  The decode kernel splits each row's positions across CTAs
+(``split_schedule``) and merges the splits in the same launch.  Torch
+indexing raises (or device-asserts) on the engine's out-of-range drop
+sentinel, which is why the append is a kernel and not ``index_put_``.
 """
 from __future__ import annotations
 
@@ -22,8 +23,11 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128)
+CHUNK = 32          # tokens per ring chunk of the decode kernel (CH)
+MAX_SPLITS = 64     # the decode kernel's bound on splits per row
+CTAS_PER_SM = 8     # decode CTAs aimed at per SM when every row is full
 
-_DECODE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                     + [ctypes.c_float, ctypes.c_void_p])
 _APPEND_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p]
@@ -64,10 +68,14 @@ def paged_kv_gather(k_pool, v_pool, tables):
 
 
 def paged_decode_plain(q, k_pool, v_pool, tables, lens, *, window: int = 0):
-    """Gather the blocks, then ``decode_attention`` at position lens-1."""
+    """Gather the blocks, then ``decode_attention`` at position lens-1.
+    A row with no visible position (len <= 0) gives 0, as the Pallas
+    kernel's body does (``decode_attention`` would average every
+    position)."""
     k, v = paged_kv_gather(k_pool, v_pool, tables)
-    return decode_attention(q[:, None], k, v, lens.long() - 1,
-                            window=window)[:, 0]
+    out = decode_attention(q[:, None], k, v, lens.long() - 1,
+                           window=window)[:, 0]
+    return out.masked_fill((lens <= 0)[:, None, None], 0)
 
 
 def paged_append_plain(k_pool, v_pool, k_new, v_new, block_ids, offsets):
@@ -82,6 +90,47 @@ def paged_append_plain(k_pool, v_pool, k_new, v_new, block_ids, offsets):
     return k_pool, v_pool
 
 
+def split_schedule(nb: int, block: int, rows: int, n_sm: int):
+    """(span, splits) of the decode kernel's grid (splits, K, B).
+
+    Split s of a (batch row, KV head) pair takes positions
+    [s * span, (s + 1) * span).  ``rows`` = B * K pairs.  The schedule
+    reads only the table's capacity nb * block, never ``lens``, so the
+    wrapper needs no host sync: it aims at CTAS_PER_SM CTAs per SM when
+    every row is full, with span a multiple of CHUNK and at most
+    MAX_SPLITS splits, and span * splits covering the capacity."""
+    cap = max(1, nb * block)
+    want = max(1, min(MAX_SPLITS, -(-CTAS_PER_SM * n_sm // max(1, rows))))
+    span = -(-cap // want)
+    span = -(-span // CHUNK) * CHUNK
+    return span, -(-cap // span)
+
+
+_TICKETS = {}
+_SCHEDULES = {}
+
+
+def _schedule(device, nb: int, block: int, rows: int):
+    """``split_schedule`` on ``device``'s SM count, kept per shape: the
+    decode loop calls it with the same shape every step."""
+    key = (device, nb, block, rows)
+    if key not in _SCHEDULES:
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        _SCHEDULES[key] = split_schedule(nb, block, rows, n_sm)
+    return _SCHEDULES[key]
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """The decode kernel's per-(row, KV head) tickets on ``device``: int32
+    zeros, which every launch leaves at zero.  Made once per device (and
+    again when a call needs more)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -90,13 +139,13 @@ def _cuda_checks(name, bf16s, ints, head_dim):
         raise ValueError(f"{name} kernel takes head_dim {HEAD_DIMS}, "
                          f"not {head_dim}")
     for label, t in bf16s:
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16 \
+        if not t.is_cuda or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} kernel wants contiguous, 16-byte "
                              f"aligned bf16 CUDA {label}; got {t.dtype} on "
                              f"{t.device}")
     for label, t in ints:
-        if t.device.type != "cuda" or t.dtype != torch.int32 \
+        if not t.is_cuda or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError(f"{name} kernel wants contiguous int32 CUDA "
                              f"{label}; got {t.dtype} on {t.device}")
@@ -122,14 +171,18 @@ def paged_decode(q, k_pool, v_pool, tables, lens, *, window: int = 0):
     _cuda_checks("paged_decode",
                  (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)),
                  (("tables", tables), ("lens", lens)), dh)
+    nb = tables.shape[1]
+    span, splits = _schedule(q.device, nb, block, B * K)
     out = torch.empty_like(q)
+    part = torch.empty(B * K * splits * (H // K) * (dh + 2),
+                       dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, B * K)
     fn = build.function("paged_attention", "paged_decode", _DECODE_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                 B, H, K, dh, num_blocks, block, tables.shape[1],
-                 int(window), 1.0 / math.sqrt(dh), stream)
+    err = build.launch(q.device, fn, q.data_ptr(), k_pool.data_ptr(),
+                       v_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(),
+                       out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                       B, H, K, dh, num_blocks, block, nb, int(window), span,
+                       splits, 1.0 / math.sqrt(dh))
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
     paged_decode.launches += 1
@@ -156,11 +209,10 @@ def paged_append(k_pool, v_pool, k_new, v_new, block_ids, offsets):
                   ("v_new", v_new)),
                  (("block_ids", block_ids), ("offsets", offsets)), dh)
     fn = build.function("paged_attention", "paged_append", _APPEND_ARGTYPES)
-    with torch.cuda.device(k_pool.device):
-        stream = torch.cuda.current_stream(k_pool.device).cuda_stream
-        err = fn(k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-                 v_pool.data_ptr(), block_ids.data_ptr(), offsets.data_ptr(),
-                 B, K, dh, num_blocks, block, stream)
+    err = build.launch(k_pool.device, fn, k_new.data_ptr(), v_new.data_ptr(),
+                       k_pool.data_ptr(), v_pool.data_ptr(),
+                       block_ids.data_ptr(), offsets.data_ptr(), B, K, dh,
+                       num_blocks, block)
     if err:
         raise RuntimeError(f"paged_append launch failed: CUDA error {err}")
     paged_append.launches += 1

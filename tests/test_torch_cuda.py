@@ -31,11 +31,16 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 64, 128])
-@pytest.mark.parametrize("S,window", [(256, 0), (200, 32)])
-def test_flash_kernel_matches_plain_on_card(cuda, D, S, window):
-    g = torch.Generator(device=cuda).manual_seed(D)
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("S", [32, 200, 1000, 1056])
+@pytest.mark.parametrize("window", [0, 32, 4096])
+def test_flash_kernel_matches_plain_on_card(cuda, D, G, S, window):
+    """Causal, with a window of 0 (none), 32, and one longer than S; S
+    ragged against the 128-row query and key tiles."""
+    g = torch.Generator(device=cuda).manual_seed(D * S + G)
+    K = 2
     q, k, v = (torch.randn(2, S, h, D, generator=g, device=cuda)
-               .to(torch.bfloat16) for h in (6, 2, 2))
+               .to(torch.bfloat16) for h in (G * K, K, K))
     before = F.flash_prefill.launches
     out = F.flash_prefill(q, k, v, causal=True, window=window)
     assert F.flash_prefill.launches == before + 1
@@ -43,28 +48,86 @@ def test_flash_kernel_matches_plain_on_card(cuda, D, S, window):
     assert float((out.float() - ref.float()).abs().max()) < TOL
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dh", [16, 64, 128])
-@pytest.mark.parametrize("window", [0, 32])
-def test_paged_kernels_match_plain_on_card(cuda, dh, window):
-    g = torch.Generator(device=cuda).manual_seed(dh)
-    B, H, K, blk, nb = 3, 6, 2, 16, 8
+def _paged_case(cuda, g, lens, G, dh, K=2, blk=16, nb=16):
+    """Pools of random bf16, each row's table a random draw of distinct
+    blocks, the append's drop sentinel on the last row."""
+    B = len(lens)
     mk = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
         torch.bfloat16)
-    q, kn, vn = mk(B, H, dh), mk(B, K, dh), mk(B, K, dh)
-    kp, vp = mk(B * nb, blk, K, dh), mk(B * nb, blk, K, dh)
-    tables = torch.arange(B * nb, device=cuda, dtype=torch.int32
-                          ).reshape(B, nb)
-    lens = torch.tensor([128, 45, 1], device=cuda, dtype=torch.int32)
-    ablk = torch.tensor([7, 10, B * nb], device=cuda, dtype=torch.int32)
-    aoff = ((lens - 1) % blk).to(torch.int32)
+    nblocks = B * nb + 4
+    q, kn, vn = mk(B, G * K, dh), mk(B, K, dh), mk(B, K, dh)
+    kp, vp = mk(nblocks, blk, K, dh), mk(nblocks, blk, K, dh)
+    perm = torch.randperm(nblocks, generator=g, device=cuda)
+    tables = perm[:B * nb].reshape(B, nb).to(torch.int32).contiguous()
+    lens = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    pos = (lens - 1).clamp_min(0).long()
+    ablk = tables[torch.arange(B, device=cuda), pos // blk].contiguous()
+    ablk[-1] = nblocks
+    aoff = (pos % blk).to(torch.int32)
+    return q, kn, vn, kp, vp, tables, lens, ablk, aoff
+
+
+def _paged_lens(blk, nb, rows):
+    """0, 1, a block boundary +- 1, a split boundary +- 1 (the span the
+    card's schedule gives this table) and the table's capacity."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    span, _ = P.split_schedule(nb, blk, rows, n_sm)
+    cap = nb * blk
+    return [0, 1, blk - 1, blk, blk + 1, span - 1, span, span + 1,
+            2 * span + 1, cap - 1, cap]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("G", [3, 4, 8])
+@pytest.mark.parametrize("window", [0, 32, 4096])
+def test_paged_kernels_match_plain_on_card(cuda, dh, G, window):
+    """Append (with the drop sentinel) then decode, every row at a length
+    on an edge of the blocks or of the split schedule."""
+    g = torch.Generator(device=cuda).manual_seed(dh + G)
+    blk, nb, K = 16, 16, 2
+    lens = _paged_lens(blk, nb, 11 * K)
+    q, kn, vn, kp, vp, tables, lens, ablk, aoff = _paged_case(
+        cuda, g, lens, G, dh, K=K, blk=blk, nb=nb)
     kp2, vp2 = kp.clone(), vp.clone()
     P.paged_append(kp, vp, kn, vn, ablk, aoff)
+    before = P.paged_decode.launches
     out = P.paged_decode(q, kp, vp, tables, lens, window=window)
+    assert P.paged_decode.launches == before + 1
     P.paged_append_plain(kp2, vp2, kn, vn, ablk, aoff)
     ref = P.paged_decode_plain(q, kp2, vp2, tables, lens, window=window)
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     assert float((out.float() - ref.float()).abs().max()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [1056, 2048])
+def test_paged_decode_served_shape_twice_without_sync(cuda, live):
+    """The served path's shape: B=4 rows of 24 heads over 8 KV heads,
+    dh=128, block 16, nb=128; one live row, three idle rows of len 1 on
+    table rows of zeros.  Two calls in a row on other queries (the
+    combine's tickets must be back at 0 after the first), the second under
+    ``set_sync_debug_mode("error")``: the wrapper reads nothing back to
+    the host."""
+    g = torch.Generator(device=cuda).manual_seed(live)
+    B, H, K, dh, blk, nb = 4, 24, 8, 128, 16, 128
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        torch.bfloat16)
+    kp, vp = mk(B * nb + 1, blk, K, dh), mk(B * nb + 1, blk, K, dh)
+    tables = torch.zeros(B, nb, dtype=torch.int32, device=cuda)
+    tables[0] = torch.arange(1, nb + 1, dtype=torch.int32, device=cuda)
+    lens = torch.tensor([live, 1, 1, 1], dtype=torch.int32, device=cuda)
+    for call in range(2):
+        q = mk(B, H, dh)
+        if call:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = P.paged_decode(q, kp, vp, tables, lens)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ref = P.paged_decode_plain(q, kp, vp, tables, lens)
+        assert float((out.float() - ref.float()).abs().max()) < TOL, call
 
 
 @pytest.mark.cuda
@@ -199,27 +262,30 @@ def test_recurrence_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.cuda
-def test_contiguous_cache_decode_through_paged_kernels(cuda):
+@pytest.mark.parametrize("S", [1056, 1058])
+@pytest.mark.parametrize("window", [0, 32])
+def test_contiguous_cache_decode_through_paged_kernels(cuda, S, window):
     """jamba's decode attention: the (B, max_len, K, dh) cache as B blocks
     of max_len tokens, through paged_append + paged_decode, against the
     plain versions (which the CPU tests hold against the reference's
     gqa_attention_decode)."""
     from repro_torch.models import layers as L
     g = torch.Generator(device=cuda).manual_seed(5)
-    B, S, K, dh, H = 2, 1056, 8, 128, 32
+    B, K, dh, H = 3, 8, 128, 32
     kc = torch.randn(B, S, K, dh, generator=g, device=cuda).to(torch.bfloat16)
     vc = torch.randn(B, S, K, dh, generator=g, device=cuda).to(torch.bfloat16)
     q = torch.randn(B, H, dh, generator=g, device=cuda).to(torch.bfloat16)
     kn = torch.randn(B, 1, K, dh, generator=g, device=cuda).to(torch.bfloat16)
-    pos = torch.tensor([1030, 7], device=cuda, dtype=torch.int32)
+    pos = torch.tensor([S - 1, 1030, 7], device=cuda, dtype=torch.int32)
     kc2, vc2 = kc.clone(), vc.clone()
     L._cache_insert(kc, vc, kn, kn, pos)
-    out = P.paged_decode(q, kc, vc, *L._contiguous_table(pos))
+    out = P.paged_decode(q, kc, vc, *L._contiguous_table(pos),
+                         window=window)
     rows = torch.arange(B, device=cuda)
     kc2[rows, pos.long()] = kn[:, 0]
     vc2[rows, pos.long()] = kn[:, 0]
     tables, lens = L._contiguous_table(pos)
-    ref = P.paged_decode_plain(q, kc2, vc2, tables, lens)
+    ref = P.paged_decode_plain(q, kc2, vc2, tables, lens, window=window)
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
     assert float((out.float() - ref.float()).abs().max()) < TOL
 

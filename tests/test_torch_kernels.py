@@ -5,9 +5,12 @@ plain versions against the Pallas kernels (interpret mode, as
 tests/test_kernels.py runs them) and the reference's jnp oracles, on the
 same numpy inputs (tests/test_torch_cuda.py holds the Hopper kernels
 against the plain versions on a card).  Tolerances are tests/test_kernels.py's: 2e-5 in f32, 2e-2 in bf16."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)           # tiny shapes: threads only add overhead
@@ -15,6 +18,7 @@ torch.set_num_threads(1)           # tiny shapes: threads only add overhead
 from repro.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro.kernels.flash_attention.ref import flash_attention_ref  # noqa
 from repro.kernels.paged_attention import ops as jops  # noqa: E402
+from repro.kernels.paged_attention.ref import paged_decode_ref  # noqa
 from repro.models import layers as jl  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as F  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as P  # noqa: E402
@@ -143,3 +147,90 @@ def test_append_plain_drops_out_of_range_rows():
                    torch.tensor([1, 0, 0], dtype=torch.int32))
     assert torch.equal(pool[1, 1], new[0])
     assert int((pool != 0).sum()) == 8
+
+
+# --- the decode kernel's split schedule --------------------------------------
+def _split_decode(q, k_pool, v_pool, tables, lens, window, span):
+    """The arithmetic of csrc/paged_attention.cu's split decode on the CPU:
+    per span of ``split_schedule``, an online softmax over CHUNK-token
+    chunks with p rounded to q's dtype relative to the running max; then
+    the partials rescaled by exp(m_split - m) in f32 and summed."""
+    B, H, dh = q.shape
+    _, block, K, _ = k_pool.shape
+    G, nb = H // K, tables.shape[1]
+    kf = k_pool.reshape(-1, K, dh).float()
+    vf = v_pool.reshape(-1, K, dh).float()
+    out = torch.zeros(B, H, dh, dtype=q.dtype)
+    for b in range(B):
+        n = min(int(lens[b]), nb * block)
+        lo = max(0, n - window) if window else 0
+        if n <= 0:
+            continue
+        for h in range(K):
+            qg = q[b, h * G:(h + 1) * G].float()
+            parts = []
+            for s in range(lo // span, (n - 1) // span + 1):
+                m = torch.full((G,), -math.inf)
+                l, acc = torch.zeros(G), torch.zeros(G, dh)
+                t_end = min((s + 1) * span, n)
+                for c0 in range(max(s * span, lo), t_end, P.CHUNK):
+                    t = torch.arange(c0, min(c0 + P.CHUNK, t_end))
+                    rows = tables[b, t // block].long() * block + t % block
+                    sc = qg @ kf[rows, h].T / math.sqrt(dh)
+                    m_new = torch.maximum(m, sc.max(-1).values)
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] \
+                        + p.to(q.dtype).float() @ vf[rows, h]
+                    m = m_new
+                parts.append((m, l, acc))
+            if len(parts) == 1:
+                o = parts[0][2] / parts[0][1][:, None]
+            else:
+                mm = torch.stack([p[0] for p in parts]).max(0).values
+                w = [torch.exp(p[0] - mm) for p in parts]
+                lt = sum(wi * p[1] for wi, p in zip(w, parts))
+                o = sum((wi / lt)[:, None] * p[2] for wi, p in zip(w, parts))
+            out[b, h * G:(h + 1) * G] = o.to(q.dtype)
+    return out
+
+
+@settings(max_examples=30, deadline=None)
+@given(block=st.sampled_from([4, 16, 1058]), nb=st.integers(1, 6),
+       B=st.integers(1, 3), G=st.integers(1, 4),
+       n_sm=st.sampled_from([1, 8, 132]), window=st.integers(0, 300),
+       dt=st.sampled_from(["f32", "bf16"]), seed=st.integers(0, 2**16),
+       data=st.data())
+def test_split_schedule_merge_matches_plain_and_ref(block, nb, B, G, n_sm,
+                                                    window, dt, seed, data):
+    """Per-span partials on ``split_schedule``'s spans, merged as the
+    kernel merges them, against ``paged_decode_plain`` (2e-5 f32, 2e-2
+    bf16) and, without a window, the reference's paged_decode_ref."""
+    if block == 1058:
+        nb = 1                  # jamba's contiguous cache: one block a row
+    K, dh = 2, 16
+    cap = nb * block
+    span, splits = P.split_schedule(nb, block, B * K, n_sm)
+    assert span % P.CHUNK == 0 and 1 <= splits <= P.MAX_SPLITS
+    assert span * splits >= cap > span * (splits - 1)
+    lens = np.asarray(data.draw(st.lists(st.integers(0, cap), min_size=B,
+                                         max_size=B)), np.int32)
+    rng = np.random.RandomState(seed)
+    nblocks = B * nb + 1
+    qj, qt = _pair(rng.randn(B, G * K, dh), dt)
+    kj, kt = _pair(rng.randn(nblocks, block, K, dh), dt)
+    vj, vt = _pair(rng.randn(nblocks, block, K, dh), dt)
+    tables = np.stack([rng.choice(nblocks, size=nb, replace=False)
+                       for _ in range(B)]).astype(np.int32)
+    tt, lt = torch.from_numpy(tables), torch.from_numpy(lens)
+    out = _split_decode(qt, kt, vt, tt, lt, window, span)
+    ref = P.paged_decode_plain(qt, kt, vt, tt, lt, window=window)
+    assert float((out.float() - ref.float()).abs().max()) < TOL[dt]
+    if window == 0:
+        live = lens > 0         # the reference averages a row that sees none
+        jref = paged_decode_ref(qj, kj, vj, jnp.asarray(tables),
+                                jnp.asarray(lens))
+        if live.any():
+            assert _err(out[live], jref[live]) < TOL[dt]
+        assert not out[~live].any()
