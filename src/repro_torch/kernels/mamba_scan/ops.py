@@ -21,6 +21,11 @@ from repro_torch.kernels import build
 
 F32 = torch.float32
 STATE_SIZES = (8, 16)
+# rounding_errs' limits on a kernel's rounding mode against the plain
+# version: the largest difference past the f32 slack, in bf16 steps of h.C,
+# and the share of elements that differ past it
+ROUND_STEPS = 1.0001
+ROUND_SHARE = 1e-2
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
@@ -46,6 +51,51 @@ def mamba_scan_plain(x, dt, Bc, Cc, A, D, h0=None, *, round_y=False):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros(B, 0, di, dtype=F32, device=x.device))
     return y + x.to(F32) * D.to(F32), h
+
+
+def hc_scale(x, dt, Bc, Cc, A, h0=None):
+    """The scale of each step's sum h.C, sum_s |h_s * C_s| (B, T, di), from
+    the plain scan run in f64."""
+    f64 = torch.float64
+    B, T, di = x.shape
+    h = (torch.zeros(B, di, A.shape[1], dtype=f64, device=x.device)
+         if h0 is None else h0.to(f64))
+    Af = A.to(f64)[None]
+    dtf, Bf, Cf = dt.to(f64), Bc.to(f64), Cc.to(f64)
+    dbx = dtf * x.to(f64)
+    out = []
+    for t in range(T):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h \
+            + dbx[:, t, :, None] * Bf[:, t, None, :]
+        out.append((h * Cf[:, t, None, :]).abs().sum(-1))
+    return (torch.stack(out, dim=1) if out else
+            torch.zeros(B, 0, di, dtype=f64, device=x.device))
+
+
+def rounding_errs(y, ref, x, dt, Bc, Cc, A, D, h0=None):
+    """A rounding-mode output ``y`` = bf16(h.C) + D*x against ``ref``, the
+    plain version's, on the scan inputs both were given.
+
+    Two f32 sums h.C taken in different orders differ by a few f32
+    roundings of the sum's own scale, sum_s |h_s C_s| (``hc_scale``), not of
+    |h.C|, which is far smaller where the sum nearly cancels.  Past that
+    slack (8 f32 epsilons of the scale and of |D*x|) the two rounded sums
+    are equal or one bf16 step of h.C apart.  Returns (the largest
+    difference past the slack, in bf16 steps of the larger |h.C|; the share
+    of elements that differ past it), for the limits ROUND_STEPS and
+    ROUND_SHARE.  An unrounded output lies within half a step of the
+    rounded one, so it passes the first limit and fails the second on
+    nearly every element."""
+    f64 = torch.float64
+    xD = x.to(f64) * D.to(f64)
+    d = (y.to(f64) - ref.to(f64)).abs()
+    slack = 8 * torch.finfo(F32).eps * (hc_scale(x, dt, Bc, Cc, A, h0)
+                                        + xD.abs())
+    # one bf16 step (8 significant bits) at the larger of the two |h.C|
+    _, e = torch.frexp((ref.to(f64) - xD).abs() + d)
+    step = torch.ldexp(torch.ones_like(d), e - 8)
+    return (float(((d - slack).clamp_min(0) / step).max()),
+            float((d > slack).to(f64).mean()))
 
 
 def _check(x, dt, Bc, Cc, A, D, h0) -> None:

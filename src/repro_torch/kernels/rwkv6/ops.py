@@ -7,7 +7,9 @@ model path runs: it takes the model layout (B, T, H, dh), an initial state
 and returns the final one, so decode (T = 1) continues from a prefill.  A
 CPU tensor goes to ``wkv6_plain``; a CUDA tensor launches
 ``csrc/wkv6.cu`` (r, k, v bf16, w f32, head size 16 or 64), which
-reads the inputs through their strides.
+reads the inputs through their strides with 16-byte asynchronous copies:
+every input must start on a 16-byte boundary and every stride of r, k, v
+(w) must be a multiple of 8 (4) elements, or the wrapper raises.
 """
 from __future__ import annotations
 
@@ -74,6 +76,19 @@ def _cuda_checks(r, k, v, w, u, state0) -> None:
         if t is not None and (t.dtype != F32 or not t.is_contiguous()):
             raise ValueError(f"wkv6 kernel wants contiguous f32 {name}; "
                              f"got {t.dtype}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w),
+                    ("state0", state0)):
+        if t is None:
+            continue
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+                s % per16 for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                if n > 1):
+            raise ValueError(
+                f"wkv6 kernel copies 16-byte rows: {name} must start on a "
+                f"16-byte boundary with strides in multiples of {per16} "
+                f"elements; got address {t.data_ptr()} % 16 = "
+                f"{t.data_ptr() % 16}, strides {t.stride()}")
 
 
 def wkv6(r, k, v, w, u, state0=None):
@@ -90,12 +105,11 @@ def wkv6(r, k, v, w, u, state0=None):
     out = torch.empty(B, T, H, dh, dtype=F32, device=r.device)
     s_T = torch.empty(B, H, dh, dh, dtype=F32, device=r.device)
     fn = build.function("wkv6", "wkv6", _ARGTYPES)
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), None if state0 is None else state0.data_ptr(),
-                 out.data_ptr(), s_T.data_ptr(), B, T, H, dh,
-                 *r.stride()[:3], *w.stride()[:3], stream)
+    err = build.launch(r.device, fn, r.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                       None if state0 is None else state0.data_ptr(),
+                       out.data_ptr(), s_T.data_ptr(), B, T, H, dh,
+                       *r.stride()[:3], *w.stride()[:3])
     if err:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {err}")
     wkv6.launches += 1
