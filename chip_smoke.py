@@ -8,7 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. The card: ``nvidia-smi`` name and power limit.  Build the kernels from
    ``src/repro_torch/csrc/*.cu`` with nvcc (one process per source, all
-   at once) into ``build/kernels/``.
+   at once) into ``build/kernels/``; print ptxas's registers and spills,
+   and the kernels' shared memory and CTAs an SM (``mamba_scan`` must use
+   no local memory: no spill).
 2. Every kernel against its plain PyTorch version on the card: flash
    prefill at llama3.2-3b width (S=1024, H=24, K=8, D=128; causal, and
    causal + window 32), at jamba's attention slot (B=2, H=32) and at
@@ -29,9 +31,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    bound and, for flash, ``scaled_dot_product_attention`` (a yardstick
    the port never calls); flash and paged decode also at the further
    shapes, wkv6 and mamba_scan also at their decode shapes (T=1, a state
-   in), whose times go into the JSON line's ``more_shapes``.  The
-   profiler's device time counts every kernel a wrapper launches, and
-   fails if another kernel runs in the window.
+   in), whose times go into the JSON line's ``more_shapes``;
+   ``mamba_scan``'s record also gives its lanes a channel (``lanes``) and
+   the special-function units' floor (``sfu_floor_ms``).  The profiler's
+   device time counts every kernel a wrapper launches, and fails if
+   another kernel runs in the window.
 3. Reference checks on small inputs: micro's prefill and paged-decode
    logits, and rwkv6-tiny's and jamba-tiny's prefill + 4 ``decode_step``s,
    through the kernels on the card against the plain versions on the CPU.
@@ -336,6 +340,8 @@ def paged_more_shapes(torch, gen, errs):
         dev = device_ms(torch, lambda: P.paged_decode(q, kp, vp, tables,
                                                       lens_t),
                         "paged_decode_kernel")
+        plain_ms = timed(torch, lambda: P.paged_decode_plain(
+            q, kp, vp, tables, lens_t), iters=5, warmup=1)
         n_tok = sum(lens)
         bms, by = bound(2 * B * H * dh * 2 + B * nb * 4 + B * 4
                         + n_tok * K * dh * 2 * 2, 4 * H * dh * n_tok)
@@ -345,10 +351,12 @@ def paged_more_shapes(torch, gen, errs):
         out_recs.append({
             "shape": f"{label}: B={B} H={H} K={K} dh={dh} block={block} "
                      f"nb={nb} lens={lens}",
-            "ms": ms, "device_ms": dev, "bound_ms": bms, "bound_by": by,
-            "span": span, "splits": splits})
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "span": span,
+            "splits": splits})
         log(f"  paged decode {label} time {ms:.4f} ms (device {dev} ms)  "
-            f"bound {bms:.5f} ms ({by}); span {span}, {splits} splits")
+            f"plain {plain_ms:.4f} ms  bound {bms:.5f} ms ({by}); span "
+            f"{span}, {splits} splits")
     return out_recs
 
 
@@ -411,23 +419,36 @@ def wkv6_phase(torch, gen):
                 f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})")
     (B, T, H, dh, state), args = decode       # rwkv6-7b's decode step
     rec["more_shapes"] = [decode_time(
-        torch, lambda: R.wkv6(*args), "wkv6_kernel",
+        torch, lambda: R.wkv6(*args), lambda: R.wkv6_plain(*args),
+        "wkv6_kernel",
         f"B={B} T={T} H={H} dh={dh} state in",
         nbytes(B, T, H, dh, state), B * T * H * dh * (5 * dh + 5))]
     rec["max_abs_err"] = max(errs)
     return rec
 
 
-def decode_time(torch, fn, kernel, shape, nbytes, flops):
+def decode_time(torch, fn, plain, kernel, shape, nbytes, flops):
     """A scan at its decode shape (inputs already drawn): CUDA events,
-    the profiler's device time and the bound."""
+    the profiler's device time, the plain version's time and the bound."""
     ms = timed(torch, fn)
     dev = device_ms(torch, fn, kernel)
+    plain_ms = timed(torch, plain, iters=5, warmup=1)
     bms, by = bound(nbytes, flops, F32_FLOPS)
-    log(f"  {kernel} at {shape}: time {ms:.4f} ms (device {dev} ms)  "
-        f"bound {bms:.5f} ms ({by})")
-    return {"shape": shape, "ms": ms, "device_ms": dev, "bound_ms": bms,
-            "bound_by": by}
+    log(f"  {kernel} at {shape}: time {ms:.4f} ms (device {dev} ms)  plain "
+        f"{plain_ms:.4f} ms  bound {bms:.5f} ms ({by})")
+    return {"shape": shape, "ms": ms, "device_ms": dev,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def sfu_floor_ms(torch, n_exp: float) -> float:
+    """The least time the card's special-function units take for n_exp
+    exponentials: 16 a clock an SM at the card's largest SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_exp / (16 * sms * mhz * 1e6) * 1e3
 
 
 def mamba_phase(torch, gen):
@@ -494,6 +515,8 @@ def mamba_phase(torch, gen):
                    "replaces": "src/repro/kernels/mamba_scan/kernel.py:45",
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                    "bound_by": by, "library_ms": None, "device_ms": dev,
+                   "sfu_floor_ms": sfu_floor_ms(torch, B * T * di * ds),
+                   "lanes": M.kernel_config(ds)[0],
                    "library_note": "no PyTorch call computes the selective "
                                    "scan",
                    "shape": f"B={B} T={T} di={di} ds={ds} zero state, "
@@ -502,9 +525,11 @@ def mamba_phase(torch, gen):
                 f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})")
     (B, T, di, ds, state), args = decode      # jamba's decode step
     rec["more_shapes"] = [decode_time(
-        torch, lambda: M.mamba_scan(*args), "mamba_scan_kernel",
+        torch, lambda: M.mamba_scan(*args), lambda: M.mamba_scan_plain(*args),
+        "mamba_scan_kernel",
         f"B={B} T={T} di={di} ds={ds} state in",
         nbytes(B, T, di, ds, state), B * T * di * (7 * ds + 3))]
+    rec["more_shapes"][0]["sfu_floor_ms"] = sfu_floor_ms(torch, B * di * ds)
     rec["max_abs_err"] = max(errs)
     return rec
 
@@ -1127,6 +1152,17 @@ def main() -> int:
     log("  wkv6_kernel dynamic shared memory per CTA and CTAs per SM: "
         + ", ".join(f"dh={d} {wsmem(d)} bytes, {wctas(d)}"
                     for d in (16, 64)))
+    from repro_torch.kernels.mamba_scan import ops as M
+    configs = {d: M.kernel_config(d) for d in M.STATE_SIZES}
+    log("  mamba_scan_kernel (the ring entry) lanes a channel, registers a "
+        "thread, dynamic shared memory per CTA and CTAs per SM; local "
+        "memory a thread (either entry): "
+        + ", ".join("ds={} {} lanes, {} registers, {} bytes, {}; {} "
+                    "bytes".format(d, *c) for d, c in configs.items()))
+    spills = {d: c[4] for d, c in configs.items() if c[4]}
+    if spills:
+        raise AssertionError(f"mamba_scan uses local memory (spills), "
+                             f"bytes a thread by d_state: {spills}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

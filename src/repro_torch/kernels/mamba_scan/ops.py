@@ -9,7 +9,8 @@ of ``mamba_layer`` (``round_y=False``, from a carried state).  It takes
 A = -exp(A_log) as the model's scans do, an initial state, and returns
 the final one.  A CPU tensor goes to ``mamba_scan_plain``; a CUDA tensor
 launches ``csrc/mamba_scan.cu`` (x, dt, B, C bf16, A and D f32, d_state 8
-or 16), which reads B and C through their strides.
+or 16), which reads B and C through their strides at any offset and x and
+dt by 16-byte copies.
 """
 from __future__ import annotations
 
@@ -129,15 +130,25 @@ def _cuda_checks(x, dt, Bc, Cc, A, D, h0) -> None:
         if t is not None and (t.dtype != F32 or not t.is_contiguous()):
             raise ValueError(f"mamba_scan kernel wants contiguous f32 "
                              f"{name}; got {t.dtype}")
+    # x and dt come in by 16-byte copies, h0 as 16-byte runs a lane
+    for name, t in (("x", x), ("dt", dt), ("h0", h0)):
+        if t is None:
+            continue
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+                s % per16 for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                if n > 1):
+            raise ValueError(
+                f"mamba_scan kernel copies 16-byte rows: {name} must start "
+                f"on a 16-byte boundary with strides in multiples of "
+                f"{per16} elements; got address {t.data_ptr()} % 16 = "
+                f"{t.data_ptr() % 16}, strides {t.stride()}")
 
 
-def mamba_scan(x, dt, Bc, Cc, A, D, h0=None, *, round_y: bool = False):
-    """x, dt: (B, T, di); Bc, Cc: (B, T, ds); A: (di, ds) (already
-    -exp(A_log)); D: (di,); h0: (B, di, ds) or None (zeros).  Returns
-    (y (B, T, di) f32 without gating, h_T (B, di, ds) f32)."""
+def _launch(fn, x, dt, Bc, Cc, A, D, h0, round_y):
+    """Checks the inputs and launches the kernel through the C function
+    ``fn`` (``mamba_scan``'s signature)."""
     _check(x, dt, Bc, Cc, A, D, h0)
-    if x.device.type == "cpu":
-        return mamba_scan_plain(x, dt, Bc, Cc, A, D, h0, round_y=round_y)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {x.device}")
     _cuda_checks(x, dt, Bc, Cc, A, D, h0)
@@ -145,19 +156,42 @@ def mamba_scan(x, dt, Bc, Cc, A, D, h0=None, *, round_y: bool = False):
     ds = A.shape[1]
     y = torch.empty(B, T, di, dtype=F32, device=x.device)
     h_T = torch.empty(B, di, ds, dtype=F32, device=x.device)
-    fn = build.function("mamba_scan", "mamba_scan", _ARGTYPES)
     strides = [s for t in (x, dt, Bc, Cc) for s in t.stride()[:2]]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-                 A.data_ptr(), D.data_ptr(),
-                 None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                 h_T.data_ptr(), B, T, di, ds, int(round_y), *strides,
-                 stream)
+    err = build.launch(x.device, fn, x.data_ptr(), dt.data_ptr(),
+                       Bc.data_ptr(), Cc.data_ptr(), A.data_ptr(),
+                       D.data_ptr(), None if h0 is None else h0.data_ptr(),
+                       y.data_ptr(), h_T.data_ptr(), B, T, di, ds,
+                       int(round_y), *strides)
     if err:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
-    mamba_scan.launches += 1
     return y, h_T
 
 
+def mamba_scan(x, dt, Bc, Cc, A, D, h0=None, *, round_y: bool = False):
+    """x, dt: (B, T, di); Bc, Cc: (B, T, ds); A: (di, ds) (already
+    -exp(A_log)); D: (di,); h0: (B, di, ds) or None (zeros).  Returns
+    (y (B, T, di) f32 without gating, h_T (B, di, ds) f32)."""
+    if x.device.type == "cpu":
+        _check(x, dt, Bc, Cc, A, D, h0)
+        return mamba_scan_plain(x, dt, Bc, Cc, A, D, h0, round_y=round_y)
+    out = _launch(build.function("mamba_scan", "mamba_scan", _ARGTYPES),
+                  x, dt, Bc, Cc, A, D, h0, round_y)
+    mamba_scan.launches += 1
+    return out
+
+
 mamba_scan.launches = 0
+
+
+def kernel_config(ds: int):
+    """(lanes a channel, registers a thread, dynamic shared memory a CTA in
+    bytes, CTAs an SM) of the kernel's ring entry on the current card, and
+    the larger local memory a thread of its two entries in bytes (above 0:
+    a spill), from the CUDA runtime."""
+    out = (ctypes.c_int * 5)()
+    fn = build.function("mamba_scan", "mamba_scan_config",
+                        [ctypes.c_int, ctypes.c_void_p])
+    err = fn(ds, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"mamba_scan_config failed: CUDA error {err}")
+    return tuple(out)

@@ -12,7 +12,9 @@ Where the model's decay and long sequences grow the wkv6 state to tens,
 1e-3 of the largest magnitude, as chip_smoke.py holds it.  Where
 mamba_scan rounds h.C to bf16, its outputs must equal the plain version's
 past an f32 slack at the scale of the sum h.C, but on under 1 % of
-elements, each one bf16 step of h.C off (``M.rounding_errs``)."""
+elements, each one bf16 step of h.C off (``M.rounding_errs``); at its
+chunk edges and up to 1024 steps, 1e-3 of the largest magnitude, as for
+wkv6."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -301,6 +303,103 @@ def test_mamba_scan_kernel_matches_plain_on_card(cuda, ds, T, round_y):
     else:
         assert float((y - ref).abs().max()) < 1e-3
     assert float((h_T - ref_T).abs().max()) < 1e-3
+
+
+def _mamba_inputs(cuda, seed, B, T, di, ds, dtr=5):
+    """x, dt (B, T, di) bf16; B and C strided slices of one (B, T, dtr +
+    2 ds) projection at an odd element offset (dtr 5: 10 bytes in, rows of
+    42 or 74 bytes); A = -(1 .. ds); D random; a state in."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    x = mk(B, T, di).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(mk(B, T, di) - 2).to(torch.bfloat16)
+    dbc = mk(B, T, dtr + 2 * ds).to(torch.bfloat16)
+    A = -torch.arange(1, ds + 1, device=cuda, dtype=torch.float32
+                      ).expand(di, ds).contiguous()
+    return [x, dt, dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:], A, mk(di),
+            mk(B, di, ds)]
+
+
+def _hold_mamba(y, h_T, args, round_y):
+    """y and h_T against the plain scan: rounding_errs in the rounding
+    mode, else 1e-3 of the largest magnitude; h_T within 1e-3 of it."""
+    ref, ref_T = M.mamba_scan_plain(*args, round_y=round_y)
+    if round_y:
+        steps, share = M.rounding_errs(y, ref, *args)
+        assert steps <= M.ROUND_STEPS and share < M.ROUND_SHARE, \
+            (steps, share)
+    else:
+        assert _rel(y, ref) < 1e-3
+    assert _rel(h_T, ref_T) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [8, 16])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 1024])
+@pytest.mark.parametrize("round_y", [False, True])
+def test_mamba_scan_ring_chunk_edges(cuda, ds, T, round_y):
+    """T on both sides of the 32-step ring chunk and up to jamba's prefill
+    length, a ragged channel count (200), B and C at an odd offset."""
+    args = _mamba_inputs(cuda, 10 * ds + T, 2, T, 200, ds)
+    y, h_T = M.mamba_scan(*args, round_y=round_y)
+    _hold_mamba(y, h_T, args, round_y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [8, 16])
+def test_mamba_scan_kernel_uses_no_local_memory(cuda, ds):
+    """Neither entry spills: its local memory a thread, from the CUDA
+    runtime, is 0 (whether or not this run built the library)."""
+    lanes, regs, smem, ctas, local = M.kernel_config(ds)
+    assert local == 0 and ds % lanes == 0 and ctas >= 1, \
+        (lanes, regs, smem, ctas, local)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 1024])
+def test_mamba_scan_is_deterministic(cuda, T):
+    """Two calls on the same inputs give the same bits: the lanes' sum
+    h.C runs in one fixed shuffle order."""
+    args = _mamba_inputs(cuda, T, 2, T, 8192, 16, dtr=256)
+    y1, h1 = M.mamba_scan(*args, round_y=True)
+    y2, h2 = M.mamba_scan(*args, round_y=True)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [8, 16])
+def test_mamba_scan_prefill_then_step_without_sync(cuda, ds):
+    """A scan over 45 steps and a T = 1 step from its final state, back to
+    back on one stream with no sync between, equal one scan over 46 (the
+    kernel's and the plain version's) within 1e-3."""
+    x, dt, Bc, Cc, A, D, h0 = _mamba_inputs(cuda, ds, 2, 46, 200, ds)
+    before = M.mamba_scan.launches
+    y1, h1 = M.mamba_scan(x[:, :45], dt[:, :45], Bc[:, :45], Cc[:, :45], A,
+                          D, h0)
+    y2, h2 = M.mamba_scan(x[:, 45:], dt[:, 45:], Bc[:, 45:], Cc[:, 45:], A,
+                          D, h1)
+    assert M.mamba_scan.launches == before + 2
+    y, h_T = torch.cat([y1, y2], 1), h2
+    for ref, ref_T in (M.mamba_scan(x, dt, Bc, Cc, A, D, h0),
+                       M.mamba_scan_plain(x, dt, Bc, Cc, A, D, h0)):
+        assert _rel(y, ref) < 1e-3 and _rel(h_T, ref_T) < 1e-3
+
+
+@pytest.mark.cuda
+def test_mamba_scan_refuses_views_its_16_byte_copies_cannot_read(cuda):
+    x, dt, Bc, Cc, A, D, h0 = _mamba_inputs(cuda, 0, 1, 4, 64, 16)
+    M.mamba_scan(x, dt, Bc, Cc, A, D, h0)                 # aligned: runs
+    flat = torch.zeros(4 * 64 + 8, device=cuda, dtype=torch.bfloat16)
+    off = flat[4:4 * 64 + 4].view(1, 4, 64)               # 8 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        M.mamba_scan(off, dt, Bc, Cc, A, D, h0)
+    wide = torch.zeros(1, 4, 68, device=cuda,
+                       dtype=torch.bfloat16)[..., :64]    # stride 68
+    with pytest.raises(ValueError, match="16-byte"):
+        M.mamba_scan(x, wide, Bc, Cc, A, D, h0)
+    hflat = torch.zeros(64 * 16 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        M.mamba_scan(x, dt, Bc, Cc, A, D, hflat[1:].view(1, 64, 16))
 
 
 @pytest.mark.cuda
