@@ -17,9 +17,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    micro width (D=16, and a ragged S); paged append + decode at B=4,
    H=24, K=8, dh=128, block 16, lens up to 2048 with a drop-sentinel row
    (window 0 and 32), and at dh=16; paged decode also at the served
-   path's real shape (one live row of 1056 tokens, three idle rows) and
-   at jamba's contiguous cache (one block of 1058 tokens a row) (bf16,
-   2e-2);
+   path's real shape (one live row of 1056 tokens, three idle rows), at
+   jamba's contiguous cache (one block of 1058 tokens a row) and at the
+   gather engine's llama3.2-3b cache (one block of 2048 tokens a row)
+   (bf16, 2e-2);
    wkv6 at rwkv6-7b's prefill (B=4, T=1024, H=64, dh=64) and decode (T=1,
    a state in) shapes and at head size 16; mamba_scan at jamba's prefill
    (B=2, T=1024, di=8192, ds=16, h.C rounded to bf16) and decode (T=1, a
@@ -46,6 +47,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    counts are zeroed just before and read just after; each of its
    kernels must be > 0, and conservation and the block audit must be
    clean.  Then one more task under the profiler.
+4b. Gather at full width: the same 4 tasks on the same params through
+   ``ServingRuntime(..., paged=False)`` (phase 4's sizes), driven as
+   ``run_task`` drives them: ``summarize()``, and ``stats()`` but for the
+   copy-byte counters, equal phase 4's; gather's park and resume bytes
+   are > 0 where paged's are 0; paged_decode and paged_append launch;
+   conservation and the block audit are clean.  Then one session alone
+   through a paged and a gather engine (a 1024-token prompt, a park, a
+   resume with a 128-token delta, 16 decoded tokens): the ids must be
+   identical, or part only at a near-tie (the gather run's top-2 logit
+   gap below the two paths' logit difference at that step).
+4c. ``benchmarks/serve_bench_torch.py``'s three fingerprints on the card
+   (plain, under ``SAGA_SANITIZE=1`` and under ``SAGA_TRACE=1``), each
+   equal to its committed ``benchmarks/expected/`` file, and its
+   paged-vs-gather leg.
+4d. ``benchmarks/soak_bench_torch.py``'s soak at its smoke size (200
+   sessions through the client, the asyncio driver and a live HTTP proxy
+   on localhost) with its four end checks.
+   Each of 4b-4d counts its kernels' launches apart (each > 0) and prints
+   its wall time.
 5. Path A: rwkv6-7b at full width and depth (B=4 prompts of 1024 tokens)
    through ``lm.prefill`` then 32 greedy ``lm.decode_step``s carrying the
    state cache: exactly 32 x 33 wkv6 launches and no other.
@@ -78,6 +98,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))    # benchmarks/
 
 TOL_BF16 = 2e-2             # tests/test_kernels.py TOL[bfloat16]
 TOL_SCAN = 1e-3             # tests/test_kernels.py's wkv6 tolerance
@@ -310,9 +331,11 @@ def paged_phase(torch, gen, gen_more):
 
 def paged_more_shapes(torch, gen, errs):
     """paged_decode at the served path's real shape (B=4: one live row of
-    1056 tokens, three idle rows of len 1 on table rows of zeros, nb=128)
-    and at jamba's contiguous cache (B=2, one block of 1058 tokens a row,
-    nb=1, lens 1056 and 1025): checked, timed, each beside its bound."""
+    1056 tokens, three idle rows of len 1 on table rows of zeros, nb=128),
+    at jamba's contiguous cache (B=2, one block of 1058 tokens a row,
+    nb=1, lens 1056 and 1025) and at the gather engine's llama3.2-3b cache
+    (B=4, one block of 2048 tokens a row, a full row, an idle one):
+    checked, timed, each beside its bound."""
     from repro_torch.kernels.paged_attention import ops as P
 
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
@@ -320,7 +343,9 @@ def paged_more_shapes(torch, gen, errs):
     out_recs = []
     for label, B, H, K, dh, block, nb, lens in [
             ("served", 4, 24, 8, 128, 16, 128, [1056, 1, 1, 1]),
-            ("jamba contiguous", 2, 32, 8, 128, 1058, 1, [1056, 1025])]:
+            ("jamba contiguous", 2, 32, 8, 128, 1058, 1, [1056, 1025]),
+            ("gather llama3.2-3b contiguous", 4, 24, 8, 128, 2048, 1,
+             [2048, 1056, 1, 300])]:
         nblocks = B * nb + 1
         q, kp, vp = mk(B, H, dh), mk(nblocks, block, K, dh), \
             mk(nblocks, block, K, dh)
@@ -687,23 +712,9 @@ def ssm_reference_phase(torch, np):
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
-def main_path(torch, np, card: str):
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    from repro_torch.serving.server import AgentRequest, MultiWorkerServer
-
-    wrappers = all_wrappers()
-    cfg = get_config("llama3.2-3b")
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=0, device="cuda")
-    srv = MultiWorkerServer(cfg, params, n_workers=2, n_slots=4,
-                            max_len=2048, pool_blocks=1024)
-    torch.cuda.synchronize()
-    log(f"  llama3.2-3b params + 2 engines ready in "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    # SWE-bench-shaped agent tasks, scaled down: a 512-1024 token first
-    # prompt, then 64-256 tokens of tool observation; 32 decoded per step
+def served_tasks(np, cfg, AgentRequest):
+    """SWE-bench-shaped agent tasks, scaled down: a 512-1024 token first
+    prompt, then 64-256 tokens of tool observation; 32 decoded per step."""
     rng = np.random.RandomState(0)
     tools = ["code_execution", "web_api", "file_operations"]
     reqs, n_decode = [], 32
@@ -715,6 +726,51 @@ def main_path(torch, np, card: str):
                           n_decode, tools[s % 3],
                           float(rng.uniform(0.1, 1.5))))
         reqs.append(AgentRequest(f"task-{i}", f"t{i % 2}", steps))
+    return reqs
+
+
+def main_path(torch, np, card: str):
+    """Phase 4, then phase 4b on the same params and tasks.  Returns the
+    launches of each, by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.server import AgentRequest
+
+    cfg = get_config("llama3.2-3b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    reqs = served_tasks(np, cfg, AgentRequest)
+    launches, paged = serve_paged(torch, np, card, cfg, params, reqs)
+    gc.collect()                  # the runtime and its engines hold cycles
+    torch.cuda.empty_cache()
+    log("phase 4b: gather at full width (llama3.2-3b, Engine(paged=False))")
+    gather = gather_phase(torch, np, card, cfg, params, reqs, paged)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve llama3.2-3b": launches,
+            "serve llama3.2-3b gather": gather}
+
+
+def audit(engines, label: str):
+    for w, eng in enumerate(engines):
+        errs = eng.pool.audit_blocks()
+        if errs:
+            raise AssertionError(f"{label} engine {w} block audit: {errs}")
+
+
+def serve_paged(torch, np, card, cfg, params, reqs):
+    """Phase 4: ``reqs`` one at a time through ``MultiWorkerServer``;
+    then one more task under the profiler.  Returns the counted run's
+    launches and its readings (summary, stats, wall, peak memory)."""
+    from repro_torch.serving.server import MultiWorkerServer
+
+    wrappers = all_wrappers()
+    t0 = time.perf_counter()
+    srv = MultiWorkerServer(cfg, params, n_workers=2, n_slots=4,
+                            max_len=2048, pool_blocks=1024)
+    torch.cuda.synchronize()
+    log(f"  llama3.2-3b: 2 paged engines ready in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     reset(wrappers)
     torch.cuda.synchronize()
@@ -739,10 +795,7 @@ def main_path(torch, np, card: str):
     if st["park_copy_bytes"] != 0:
         raise AssertionError("paged park copied device bytes")
     srv.runtime.check_conservation()
-    for w, eng in enumerate(srv.engines):
-        errs = eng.pool.audit_blocks()
-        if errs:
-            raise AssertionError(f"engine {w} block audit: {errs}")
+    audit(srv.engines, "paged")
     decoded = 0
     for req, out in zip(reqs, outs):
         ctx = np.asarray(srv.runtime.sessions[req.session_id].ctx)
@@ -760,10 +813,232 @@ def main_path(torch, np, card: str):
         f"{decoded} decoded tokens = {decoded / wall:.2f} decoded tokens "
         f"per wall second (prefill included); max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
+    paged = {"summary": srv.runtime.summarize(), "stats": st, "wall": wall,
+             "peak": peak}
     profile_window(torch, np, srv, cfg, card)
-    del srv, params
-    gc.collect()                  # the runtime and its engines hold cycles
+    return launches, paged
+
+
+COPY_BYTES = ("park_copy_bytes", "resume_copy_bytes", "migration_copy_bytes")
+
+
+def gather_phase(torch, np, card, cfg, params, reqs, paged):
+    """Phase 4b: ``reqs`` through ``ServingRuntime(..., paged=False)`` at
+    phase 4's sizes, each submitted and run to its end as
+    ``MultiWorkerServer.run_task`` does, held to phase 4's ``paged``
+    readings; then ``gather_identity``.  Returns the run's launches."""
+    from repro_torch.serving.runtime import ServingRuntime
+
+    wrappers = all_wrappers()
+    t_phase = time.perf_counter()
+    rt = ServingRuntime(cfg, params, n_workers=2, n_slots=4, max_len=2048,
+                        pool_blocks=1024, paged=False)
+    reset(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for req in reqs:
+        handle = rt.submit(req, arrival=rt.ev.now)
+        rt.run()
+        if not handle.done:
+            raise AssertionError(f"gather: task {req.session_id} did not "
+                                 f"finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    st = rt.stats()
+    log(f"  launches: {launches}")
+    if repr(rt.summarize()) != repr(paged["summary"]):
+        raise AssertionError(f"gather summary {rt.summarize()} differs from "
+                             f"paged {paged['summary']}")
+
+    def strip(d):
+        return {k: v for k, v in d.items() if k not in COPY_BYTES}
+    if strip(st) != strip(paged["stats"]):
+        raise AssertionError(f"gather stats {st} differ from paged "
+                             f"{paged['stats']} (copy bytes apart)")
+    if st["park_copy_bytes"] <= 0 or st["resume_copy_bytes"] <= 0 \
+            or paged["stats"]["park_copy_bytes"] \
+            or paged["stats"]["resume_copy_bytes"]:
+        raise AssertionError("park/resume copy bytes: gather must move "
+                             "some, paged none")
+    for name in ("flash_prefill", "paged_decode", "paged_append"):
+        if launches[name] <= 0:
+            raise AssertionError(f"gather path never launched {name}")
+    rt.check_conservation()
+    audit(rt.engines, "gather")
+    rounds = st["decode_steps"]
+    log(f"  summarize() and stats() (copy bytes apart) equal phase 4's; "
+        f"park/resume copy bytes gather {st['park_copy_bytes']}/"
+        f"{st['resume_copy_bytes']}, paged 0/0; conservation and block "
+        f"audit clean")
+    log(f"  gather vs paged [{card}]: wall over {rounds} decode rounds "
+        f"(prefill and copies included) {wall / rounds * 1e3:.2f} ms vs "
+        f"{paged['wall'] / rounds * 1e3:.2f} ms a round; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB vs "
+        f"{paged['peak'] / 2**30:.2f} GiB")
+    del rt
+    gc.collect()
     torch.cuda.empty_cache()
+    gather_identity(torch, np, card, cfg, params)
+    log(f"  phase 4b wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def gather_identity(torch, np, card, cfg, params):
+    """One session alone through a paged and a gather engine at phase 4's
+    sizes, the twin of tests/test_paged_decode.py::_identity_roundtrip at
+    full width: a 1024-token prompt, 8 decoded tokens, a park, a resume
+    with a 128-token delta, 8 more.  The ids must be identical.  Where
+    they part, the step's logits, recorded from each engine's own
+    ``lm.decode_step`` / ``lm.decode_step_paged`` calls, must show a
+    near-tie (ROADMAP.md): the gather run's top-2 logit gap below the two
+    paths' logit difference."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    rng = np.random.RandomState(4)
+    prompt = rng.randint(1, cfg.vocab, size=1024).astype(np.int32)
+    tool = rng.randint(1, cfg.vocab, size=128).astype(np.int32)
+    real = (lm.decode_step, lm.decode_step_paged)
+
+    def recorded(fn, sink):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            sink.append(out[0][:, 0].float().cpu())
+            return out
+        return call
+
+    runs = {}
+    for mode in ("paged", "gather"):
+        logits = []
+        lm.decode_step, lm.decode_step_paged = (recorded(f, logits)
+                                                for f in real)
+        try:
+            eng = Engine(cfg, params, n_slots=4, max_len=2048,
+                         pool_blocks=1024, paged=mode == "paged")
+            t0 = time.perf_counter()
+            s = eng.start_session("x", prompt, cached_hit=False)
+            first = eng.decode({s: int(prompt[-1])}, n_steps=8)[s]
+            rows = [s] * 8
+            if not eng.park_session("x"):
+                raise AssertionError(f"{mode} engine: park failed")
+            ctx = np.concatenate([prompt, np.asarray(first, np.int32), tool])
+            s = eng.start_session("x", ctx, cached_hit=True)
+            rest = eng.decode({s: int(ctx[-1])}, n_steps=8)[s]
+            rows += [s] * 8
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            lm.decode_step, lm.decode_step_paged = real
+        runs[mode] = {"ids": first + rest, "wall": wall,
+                      "logits": [lg[r] for lg, r in zip(logits, rows)],
+                      "copies": (eng.park_copy_bytes, eng.resume_copy_bytes)}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    p, g = runs["paged"], runs["gather"]
+    diffs = [max_err(a, b) for a, b in zip(p["logits"], g["logits"])]
+    part = next((j for j, (a, b) in enumerate(zip(p["ids"], g["ids"]))
+                 if a != b), None)
+    upto = len(diffs) if part is None else part + 1
+    log(f"  one session alone, paged vs gather engine [{card}]: 16 decoded "
+        f"ids {'identical' if part is None else f'part at step {part}'}; "
+        f"largest logit difference up to there {max(diffs[:upto]):.3e}; "
+        f"park/resume copy bytes gather {g['copies']}, paged {p['copies']}; "
+        f"wall gather {g['wall']:.3f} s, paged {p['wall']:.3f} s")
+    if part is not None:
+        top2 = g["logits"][part].topk(2).values
+        gap = float(top2[0] - top2[1])
+        log(f"  step {part}: the gather run's top-2 logit gap {gap:.3e}, "
+            f"the paths' logit difference {diffs[part]:.3e}")
+        if not gap < diffs[part]:
+            raise AssertionError(f"paged and gather ids part at step {part} "
+                                 f"away from a near-tie")
+    if min(g["copies"]) <= 0 or max(p["copies"]) != 0:
+        raise AssertionError(f"copy bytes: gather {g['copies']}, paged "
+                             f"{p['copies']}")
+
+
+def bench_phase(torch, card):
+    """Phase 4c: ``benchmarks/serve_bench_torch.py``'s three fingerprints
+    on the card, plain, under SAGA_SANITIZE=1 and under SAGA_TRACE=1,
+    each equal to its committed ``benchmarks/expected/`` file, then its
+    paged-vs-gather leg.  Returns the phase's launches."""
+    import os
+
+    from benchmarks import serve_bench_torch as sb
+    from benchmarks.torch_common import check_fingerprint
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    wrappers = all_wrappers()
+    reset(wrappers)
+    t_phase = time.perf_counter()
+    for flag in (None, "SAGA_SANITIZE", "SAGA_TRACE"):
+        old = os.environ.get(flag) if flag else None
+        if flag:
+            os.environ[flag] = "1"
+        try:
+            t0 = time.perf_counter()
+            for name, fn in (("serve_bench", sb._fingerprint),
+                             ("serve_bench_disagg", sb._disagg_fingerprint),
+                             ("serve_bench_asyncio", sb._asyncio_fingerprint)):
+                check_fingerprint(name, fn("cuda"))
+        finally:
+            if flag and old is None:
+                del os.environ[flag]
+            elif flag:
+                os.environ[flag] = old
+        log(f"  fingerprints {flag or 'plain'} [{card}]: all three equal "
+            f"benchmarks/expected/ ({time.perf_counter() - t0:.1f} s)")
+    cfg = get_config("micro")
+    pg = sb.run_paged_gather_ab(cfg, lm.init_params(cfg, seed=0,
+                                                    device="cuda"))
+    torch.cuda.synchronize()
+    launches = counts(wrappers)
+    log(f"  paged-vs-gather leg [{card}]: summaries equal over "
+        f"{pg['decode_rounds']} decode rounds; wall a round (prefill and "
+        f"copies included) paged {pg['paged_us_per_round']:.0f} us, gather "
+        f"{pg['gather_us_per_round']:.0f} us; park/resume copy bytes gather "
+        f"{pg['gather_park_copy_bytes']}/{pg['gather_resume_copy_bytes']}, "
+        f"paged 0/0")
+    log(f"  launches: {launches}")
+    for name in ("flash_prefill", "paged_decode", "paged_append"):
+        if launches[name] <= 0:
+            raise AssertionError(f"serve_bench_torch never launched {name}")
+    log(f"  phase 4c wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def soak_phase(torch, card):
+    """Phase 4d: ``benchmarks/soak_bench_torch.py``'s soak at its smoke
+    size on the card (it raises on any of its four end checks).  Returns
+    the phase's launches."""
+    import asyncio
+
+    from benchmarks import soak_bench_torch as soak
+
+    wrappers = all_wrappers()
+    reset(wrappers)
+    t0 = time.perf_counter()
+    out = asyncio.run(soak._soak(soak.SMOKE_SESSIONS, soak.SMOKE_SPREAD_S,
+                                 soak.TIME_SCALE, "least-loaded", "cuda"))
+    torch.cuda.synchronize()
+    launches = counts(wrappers)
+    log(f"  soak [{card}]: {out['n_sessions']} sessions and "
+        f"{out['http_completions']} HTTP completions in {out['wall_s']:.2f} s "
+        f"wall = {out['n_sessions'] / out['wall_s']:.2f} sessions per wall "
+        f"second; {out['virtual_makespan_s']:.1f} s virtual, "
+        f"{out['events']} events, max pacing lag {out['max_lag_s']:.3f} s, "
+        f"{out['decoded_tokens']} decoded tokens; conservation, block audit, "
+        f"pool mirrors and span closure clean")
+    log(f"  launches: {launches}")
+    for name in ("flash_prefill", "paged_decode", "paged_append"):
+        if launches[name] <= 0:
+            raise AssertionError(f"soak never launched {name}")
+    log(f"  phase 4d wall {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1176,7 +1451,11 @@ def main() -> int:
     reference_phase(torch, np)
     ssm_reference_phase(torch, np)
     log("phase 4: main path (llama3.2-3b served)")
-    by_path = {"serve llama3.2-3b": main_path(torch, np, card)}
+    by_path = main_path(torch, np, card)
+    log("phase 4c: serve_bench_torch's fingerprints on the card (micro)")
+    by_path["serve_bench_torch micro"] = bench_phase(torch, card)
+    log("phase 4d: soak_bench_torch's soak on the card (micro)")
+    by_path["soak_bench_torch micro"] = soak_phase(torch, card)
     by_path.update(ssm_paths(torch, np, card))
     for rec in kernels:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in

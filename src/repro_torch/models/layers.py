@@ -128,7 +128,8 @@ def _cache_insert(k_cache, v_cache, k, v, pos):
     """Write row b's (B, 1, K, dh) k/v into the contiguous caches at
     position ``pos[b]``, in place, through ``paged_append`` (block b,
     offset pos).  The reference's dynamic_update_slice returns new caches
-    and clamps a position past the end; the append drops it."""
+    and clamps a position past the end, where the append would drop it:
+    ``lm.decode_step`` refuses such a position before it gets here."""
     B = k.shape[0]
     ids = torch.arange(B, dtype=torch.int32, device=k.device)
     return paged_append(k_cache, v_cache, k[:, 0].contiguous(),

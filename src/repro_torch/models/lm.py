@@ -17,11 +17,10 @@ math accumulates in f32 where the reference's does):
 The reference's layer ``scan`` is a Python loop over the stacked axis.
 Caches: dense {k, v} (L, B, max_len, K, dh); ssm {wkv, shift_tm,
 shift_cm}; hybrid {k, v} per superblock plus {conv, ssm} per mamba slot.
-``decode_step`` (ssm, hybrid) and ``decode_step_paged`` (dense, over the
-serving pool) update them in place, where the reference returns new ones.
-The moe and vlm families (uniform MoE, the patch stream), MLA, enc-dec and
-dense decode over a contiguous cache are later slices of the port and
-raise.
+``decode_step`` (every family, over these caches) and ``decode_step_paged``
+(dense, over the serving pool) update them in place, where the reference
+returns new ones.  The moe and vlm families (uniform MoE, the patch
+stream), MLA and enc-dec are later slices of the port and raise.
 """
 from __future__ import annotations
 
@@ -257,6 +256,18 @@ def _run_uniform(params, x, cfg, positions):
     return x, (torch.stack(ks), torch.stack(vs))
 
 
+def _uniform_decode_block(x, lp, kc, vc, cfg, pos):
+    """Twin of ``_uniform_block`` for one token over a contiguous per-layer
+    cache (B, max_len, K, dh), updated in place, with the same
+    residual-stream rounding points."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, kc, vc = L.gqa_attention_decode(h, lp["attn"], cfg, kc, vc, pos)
+    x = L.pin_bf16(x + L.pin_bf16(y))
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y = L.ffn_swiglu(h, lp["mlp"])
+    return L.pin_bf16(x + L.pin_bf16(y))
+
+
 def _uniform_decode_block_paged(x, lp, kp, vp, tables, pos, block_ids,
                                 offsets, cfg):
     """Twin of ``_uniform_block`` for one token over pool blocks, with
@@ -476,19 +487,29 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
     """One decode step.  tokens: (B, 1) ids; pos: an int or (B,) position
     of the new token; cache: ``prefill``'s or ``init_cache``'s, updated in
     place (the reference returns a new one).  Returns (logits (B,1,V) f32,
-    cache).  The ssm and hybrid families only: the dense family decodes
-    through ``decode_step_paged``, its contiguous-cache decode is a later
-    slice."""
+    cache).
+
+    A position at or past the k/v cache's ``max_len`` raises (on the card,
+    as a device-side assert: no host sync).  The reference's
+    ``dynamic_update_slice`` clamps it to the last slot and attends over
+    every slot; the port's append would drop it.  The serving runtime
+    never gets there: a program's context is capped at ``max_len``
+    (``workflow/program.py``), so the last decoded token sits at
+    ``max_len - 1``."""
     check_family(cfg)
-    if cfg.family == "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: dense decode runs through decode_step_paged; the "
-            f"contiguous-cache dense decode_step comes in a later slice")
     x = embed_tokens(params, tokens, cfg)
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device
                           ).broadcast_to((B,)).contiguous()
-    if cfg.family == "ssm":
+    if "k" in cache:
+        torch._assert_async((pos < cache["k"].shape[2]).all(),
+                            "decode_step: a position at or past the cache's "
+                            "max_len")
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            x = _uniform_decode_block(x, _layer(params["layers"], i),
+                                      cache["k"][i], cache["v"][i], cfg, pos)
+    elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x, st = _rwkv_decode_block(
                 x, _layer(params["layers"], i),

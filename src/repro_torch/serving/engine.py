@@ -1,19 +1,21 @@
 """Single-worker serving engine: continuous batching over decode slots +
 paged KV living in pool blocks from admit to finish.
 
-The twin of ``repro.serving.engine`` in its default **paged** mode, on
-PyTorch.  A session's KV lands in ``PagedKVPool`` blocks at admit
+The twin of ``repro.serving.engine`` on PyTorch.  In the default
+**paged** mode a session's KV lands in ``PagedKVPool`` blocks at admit
 (prefill scatters straight into blocks), the batched decode step attends
 over per-slot block tables and appends each new token's K/V into the tail
 block on device, and park/resume/preempt are pure metadata flips — zero
-device copies.  The engine's tensors live on the params' device: on the
-card, prefill runs the flash kernel and each decode round the append and
-paged-attention kernels; on the CPU, their plain versions.
+device copies.  ``Engine(paged=False)`` is the reference's gather oracle:
+contiguous per-slot caches (``lm.init_cache``), park/resume as real
+pool<->slot copies.  The engine's tensors live on the params' device: on
+the card, prefill runs the flash kernel and each decode round the append
+and paged-attention kernels (gather mode reads each slot's cache as one
+block); on the CPU, their plain versions.
 
-The reference's ``Engine(paged=False)`` gather oracle is a later slice
-of the port.  PyTorch runs eagerly, so there is no jit cache; the
-prefill lengths are still padded to the reference's lcm quantum, which
-keeps the KV (and the token ids) the reference's.
+PyTorch runs eagerly, so there is no jit cache; the prefill lengths are
+still padded to the reference's lcm quantum, which keeps the KV (and the
+token ids) the reference's.
 """
 from __future__ import annotations
 
@@ -62,28 +64,32 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  max_len: int = 512, pool_blocks: int = 64,
                  block_size: int = 16, env=None, paged: bool = True):
-        if not paged:
-            raise NotImplementedError(
-                "Engine(paged=False), the reference's gather oracle, is a "
-                "later slice of the port")
         check_engine_family(cfg)
-        assert max_len % block_size == 0, \
-            "paged decode needs max_len to be a whole number of blocks"
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
         self.env = env              # kept for the runtime's scale-up call
         self.n_slots = n_slots
         self.max_len = max_len
-        self.paged = True
+        self.paged = paged
         self.slots = [SlotState() for _ in range(n_slots)]
-        self.max_nb = max_len // block_size
-        # resident headroom: every slot can hold a max_len session in
-        # blocks without ever competing with the parked population,
-        # so policy-visible capacity stays identical to gather mode
+        if paged:
+            assert max_len % block_size == 0, \
+                "paged decode needs max_len to be a whole number of blocks"
+            self.max_nb = max_len // block_size
+            # resident headroom: every slot can hold a max_len session in
+            # blocks without ever competing with the parked population,
+            # so policy-visible capacity stays identical to gather mode
+            headroom = n_slots * self.max_nb
+            self.cache = None
+        else:
+            self.max_nb = 0
+            headroom = 0
+            self.cache = lm.init_cache(cfg, n_slots, max_len,
+                                       device=self.device)
         self.pool = PagedKVPool(cfg.n_layers, pool_blocks, block_size,
                                 cfg.n_kv_heads, cfg.head_dim,
-                                headroom_blocks=n_slots * self.max_nb,
+                                headroom_blocks=headroom,
                                 device=self.device)
         # prefill quantum: a whole number of blocks AND of the base
         # bucket, so a bucket boundary never splits a tail block
@@ -117,6 +123,16 @@ class Engine:
         the runtime's conservation checks)."""
         return sum(1 for s in self.slots if s.session_id is not None)
 
+    def _write_slot(self, slot: int, k: torch.Tensor, v: torch.Tensor,
+                    length: int) -> None:
+        """k/v: (L, S, K, dh) -> into the batched decode cache, the rest of
+        the slot's row zeroed (the reference pads to max_len)."""
+        n = k.shape[1]
+        for cache, new in ((self.cache["k"], k), (self.cache["v"], v)):
+            cache[:, slot, :n] = new
+            cache[:, slot, n:] = 0
+        self.slots[slot].length = length
+
     def _prefill_kv(self, tokens: np.ndarray):
         """Prefill ``tokens`` and return (k, v) of shape (L, n, K, dh).
 
@@ -146,8 +162,12 @@ class Engine:
         if slot is None:
             return None
         tokens = np.asarray(tokens, np.int32)
-        self._admit_paged(sid, tokens, cached_hit)
-        self.slots[slot] = SlotState(sid, len(tokens))
+        if self.paged:
+            self._admit_paged(sid, tokens, cached_hit)
+            self.slots[slot] = SlotState(sid, len(tokens))
+        else:
+            self._admit_gather(slot, sid, tokens, cached_hit)
+            self.slots[slot].session_id = sid
         return slot
 
     def _admit_paged(self, sid: str, tokens: np.ndarray,
@@ -174,68 +194,118 @@ class Engine:
             self.prefill_tokens += len(tokens)
             self.regen_tokens += len(tokens)
 
+    def _admit_gather(self, slot: int, sid: str, tokens: np.ndarray,
+                      cached_hit: bool) -> None:
+        """Gather mode: copy parked blocks into the contiguous per-slot
+        cache (an O(context-bytes) resume copy)."""
+        resumed = self.pool.resume(sid) if cached_hit else None
+        if resumed is not None:
+            k, v, n = resumed
+            self.resume_copy_bytes += self.pool.session_bytes(sid)
+            delta = tokens[n:]
+            self.pool.free_session(sid)
+            if len(delta):
+                dk, dv = self._prefill_kv(delta)
+                k = torch.cat([k, dk], dim=1)
+                v = torch.cat([v, dv], dim=1)
+                self.prefill_tokens += len(delta)
+            self._write_slot(slot, k, v, len(tokens))
+        else:
+            k, v = self._prefill_kv(tokens)
+            self.prefill_tokens += len(tokens)
+            self.regen_tokens += len(tokens)
+            self._write_slot(slot, k, v, len(tokens))
+
     def decode(self, slot_tokens: Dict[int, int],
                n_steps: int = 1) -> Dict[int, List[int]]:
         """Run ``n_steps`` batched greedy decode steps for the given
-        slots, attending directly over pool block tables.  slot_tokens:
-        {slot: next input token id}.  Returns generated ids per slot.
-        Each step appends the new K/V into the tail block on device;
-        idle batch rows carry an out-of-range append sentinel so they
-        write nowhere."""
+        slots.  slot_tokens: {slot: next input token id}.  Returns
+        generated ids per slot; the argmax runs on the device and the ids
+        come back once per step.
+
+        Paged mode attends over pool block tables and appends each new
+        K/V into the tail block on device; idle batch rows carry an
+        out-of-range append sentinel so they write nowhere.  Gather mode
+        runs ``lm.decode_step`` over the slot caches, where, as in the
+        reference, an idle row decodes token 0 at position 0 and writes
+        its K/V there, into an occupied slot too (so a slot that sits a
+        round out loses its first cached token)."""
         out: Dict[int, List[int]] = {s: [] for s in slot_tokens}
         cur = dict(slot_tokens)
-        pool = self.pool
-        sentinel = pool.total_blocks
         for _ in range(n_steps):
             tok = np.zeros((self.n_slots, 1), np.int32)
             pos = np.zeros((self.n_slots,), np.int32)
-            tables = np.zeros((self.n_slots, self.max_nb), np.int32)
-            ablk = np.full((self.n_slots,), sentinel, np.int32)
-            aoff = np.zeros((self.n_slots,), np.int32)
             for s, t in cur.items():
-                sid = self.slots[s].session_id
-                pool.ensure_tail_room(sid)
                 tok[s, 0] = t
                 pos[s] = self.slots[s].length
-                tbl = pool.tables[sid]
-                tables[s, :len(tbl)] = tbl
-                ablk[s], aoff[s] = pool.tail_slot(sid)
-            logits, pool.k_pool, pool.v_pool = lm.decode_step_paged(
-                self.params, self._ints(tok, torch.long), pool.k_pool,
-                pool.v_pool, self._ints(tables), self._ints(pos),
-                self._ints(ablk), self._ints(aoff), self.cfg)
+            if self.paged:
+                logits = self._step_paged(cur, tok, pos)
+            else:
+                logits, self.cache = lm.decode_step(
+                    self.params, self._ints(tok, torch.long), self.cache,
+                    self._ints(pos), self.cfg)
             nxt = logits[:, 0, :].argmax(dim=-1).cpu().numpy()
             for s in cur:
-                pool.append_token(self.slots[s].session_id)
+                if self.paged:
+                    self.pool.append_token(self.slots[s].session_id)
                 self.slots[s].length += 1
                 out[s].append(int(nxt[s]))
                 cur[s] = int(nxt[s])
             self.decode_steps += 1
         return out
 
+    def _step_paged(self, cur: Dict[int, int], tok: np.ndarray,
+                    pos: np.ndarray) -> torch.Tensor:
+        """One paged decode step for the rows in ``cur``; returns the
+        logits (n_slots, 1, V)."""
+        pool = self.pool
+        tables = np.zeros((self.n_slots, self.max_nb), np.int32)
+        ablk = np.full((self.n_slots,), pool.total_blocks, np.int32)
+        aoff = np.zeros((self.n_slots,), np.int32)
+        for s in cur:
+            sid = self.slots[s].session_id
+            pool.ensure_tail_room(sid)
+            tbl = pool.tables[sid]
+            tables[s, :len(tbl)] = tbl
+            ablk[s], aoff[s] = pool.tail_slot(sid)
+        logits, pool.k_pool, pool.v_pool = lm.decode_step_paged(
+            self.params, self._ints(tok, torch.long), pool.k_pool,
+            pool.v_pool, self._ints(tables), self._ints(pos),
+            self._ints(ablk), self._ints(aoff), self.cfg)
+        return logits
+
     def park_session(self, sid: str) -> bool:
-        """Session pauses for a tool call: metadata-only — the blocks
-        already live in the pool, parking just flips the session from
-        resident to parked accounting (on False the slot keeps its
-        binding so ``release_session`` still frees the blocks)."""
+        """Session pauses for a tool call.  Paged mode: metadata-only —
+        the blocks already live in the pool, parking just flips the
+        session from resident to parked accounting (on False the slot
+        keeps its binding so ``release_session`` still frees the
+        blocks).  Gather mode: copy the slot KV into pool blocks."""
         slot = next((i for i, s in enumerate(self.slots)
                      if s.session_id == sid), None)
         if slot is None:
             return False
-        if not self.pool.park_resident(sid):
-            return False
+        if self.paged:
+            if not self.pool.park_resident(sid):
+                return False
+            self.slots[slot] = SlotState()
+            return True
+        ok = self.pool.park(sid, self.cache["k"][:, slot],
+                            self.cache["v"][:, slot],
+                            self.slots[slot].length)
+        if ok:
+            self.park_copy_bytes += self.pool.session_bytes(sid)
         self.slots[slot] = SlotState()
-        return True
+        return ok
 
     def release_session(self, sid: str) -> bool:
         """Free a session's slot WITHOUT parking its KV (task finished:
-        nothing will resume), returning its resident blocks to the free
-        list — still metadata-only."""
+        nothing will resume).  In paged mode this returns the resident
+        blocks to the free list — still metadata-only."""
         slot = next((i for i, s in enumerate(self.slots)
                      if s.session_id == sid), None)
         if slot is None:
             return False
-        if sid in self.pool.resident:
+        if self.paged and sid in self.pool.resident:
             self.pool.free_session(sid)
         self.slots[slot] = SlotState()
         return True
@@ -293,9 +363,10 @@ class Engine:
 
     def evict_session(self, sid: str) -> None:
         """Policy eviction of parked blocks.  A resident session's
-        blocks are pinned by its slot: no-op until the slot releases
-        them."""
-        if sid in self.pool.resident:
+        blocks are pinned by its slot (mirroring gather mode, where a
+        resumed session holds no pool blocks at all): no-op until the
+        slot releases them."""
+        if self.paged and sid in self.pool.resident:
             return
         self.pool.free_session(sid)
 

@@ -448,6 +448,65 @@ def test_contiguous_cache_decode_through_paged_kernels(cuda, S, window):
     assert float((out.float() - ref.float()).abs().max()) < TOL
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 32])
+def test_paged_decode_over_the_gather_cache_of_llama3_2_3b(cuda, window):
+    """The gather engine's launch at llama3.2-3b's max_len: B=4 rows of
+    one 2048-token block each (H=24, K=8, dh=128), a full row, a
+    mid-length one, an idle one (len 1) and a short one, against the
+    plain version (split_schedule(nb=1, block=2048, ...))."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, H, K, dh, S = 4, 24, 8, 128, 2048
+    kc, vc = (torch.randn(B, S, K, dh, generator=g, device=cuda)
+              .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, H, dh, generator=g, device=cuda).to(torch.bfloat16)
+    tables = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    lens = torch.tensor([2048, 1056, 1, 300], dtype=torch.int32,
+                        device=cuda)
+    out = P.paged_decode(q, kc, vc, tables, lens, window=window)
+    ref = P.paged_decode_plain(q, kc, vc, tables, lens, window=window)
+    assert float((out.float() - ref.float()).abs().max()) < TOL
+
+
+@pytest.mark.cuda
+def test_gather_engine_on_card_matches_cpu(cuda):
+    """micro through Engine(paged=False) on the card and on the CPU: two
+    sessions, a park, a resume with a delta, a round the resumed slot
+    sits out, more decoding and a release give the same ids and the same
+    host state (slot lengths, block tables, free list, copy bytes)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("micro")
+    cpu = lm.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.RandomState(3)
+    a, b, tool = (rng.randint(1, cfg.vocab, n).astype(np.int32)
+                  for n in (37, 20, 11))
+    runs = []
+    for p in (cpu, _to(cpu, cuda)):
+        eng = Engine(cfg, p, n_slots=3, max_len=96, pool_blocks=12,
+                     block_size=8, paged=False)
+        sa = eng.start_session("a", a, cached_hit=False)
+        sb = eng.start_session("b", b, cached_hit=False)
+        out = eng.decode({sa: int(a[-1]), sb: int(b[-1])}, n_steps=4)
+        ids = [out[sa], out[sb]]
+        assert eng.park_session("a")
+        ctx = np.concatenate([a, np.asarray(ids[0], np.int32), tool])
+        sa = eng.start_session("a", ctx, cached_hit=True)
+        ids.append(eng.decode({sb: ids[1][-1]}, n_steps=2)[sb])
+        ids.append(eng.decode({sa: int(ctx[-1])}, n_steps=3)[sa])
+        assert eng.release_session("b")
+        pool = eng.pool
+        runs.append((ids, dict(pool.tables), dict(pool.lens),
+                     list(pool.free),
+                     [(s.session_id, s.length) for s in eng.slots],
+                     eng.park_copy_bytes, eng.resume_copy_bytes))
+    assert runs[1] == runs[0]
+    assert runs[1][-2] > 0 and runs[1][-1] > 0
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

@@ -1,8 +1,9 @@
 """The port's serving engine and paged KV pool against the JAX reference:
 the same admit -> decode -> park -> resume-with-delta -> decode sequence
 on the same carried params gives identical token ids and identical
-host-side state (block tables, lens, free list), and the pool's random
-lifecycle interleavings draw the same block ids as the reference pool."""
+host-side state (block tables, lens, free list, copy bytes), in paged and
+in gather mode, and the pool's random lifecycle interleavings draw the
+same block ids as the reference pool."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,8 +37,13 @@ def _state(eng):
 
 def _script(eng, rng_seed, vocab):
     """Two sessions batched together, a park, a resume whose delta
-    prefill continues a partly filled tail block, and a release.
-    Returns the emitted ids and the host state after each phase."""
+    prefill continues a partly filled tail block, a round in which the
+    occupied slot of b sits out, b decoding again, and a release.
+    Returns the emitted ids and the host state after each phase.
+
+    In gather mode the round b sits out writes its slot's position 0 (the
+    reference's idle-row write, ``Engine.decode``), so b's later ids show
+    whether the port mirrors it."""
     rng = np.random.RandomState(rng_seed)
     a = rng.randint(1, vocab, size=37).astype(np.int32)
     b = rng.randint(1, vocab, size=20).astype(np.int32)
@@ -56,6 +62,9 @@ def _script(eng, rng_seed, vocab):
     states.append(_state(eng))
     out = eng.decode({sa: int(ctx[-1])}, n_steps=5)
     ids.append(out[sa])
+    out = eng.decode({sb: ids[2][-1]}, n_steps=3)
+    ids.append(out[sb])
+    states.append(_state(eng))
     assert eng.release_session("b")
     states.append(_state(eng))
     return ids, states
@@ -74,6 +83,91 @@ def test_engine_matches_jax_engine(name):
     assert states_t == states_j
     assert et.pool.audit_blocks() == []
     assert et.park_copy_bytes == 0 and et.resume_copy_bytes == 0
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_gather_engine_matches_jax_gather_engine(name):
+    """``Engine(paged=False)``, the gather oracle, against the reference's:
+    the same script gives the same ids and host state, and the park and
+    the resume copy the same nonzero bytes."""
+    cj, ct = CONFIGS[name]
+    pj = jlm.init_params(cj, jax.random.PRNGKey(4))
+    pt = tlm.params_from_jax(jax.tree_util.tree_map(np.asarray, pj), "cpu")
+    kw = dict(n_slots=3, max_len=96, pool_blocks=12, block_size=8,
+              paged=False)
+    ej, et = JEngine(cj, pj, **kw), TEngine(ct, pt, **kw)
+    ids_j, states_j = _script(ej, 5, cj.vocab)
+    ids_t, states_t = _script(et, 5, cj.vocab)
+    assert ids_t == ids_j
+    assert states_t == states_j
+    assert et.pool.audit_blocks() == []
+    assert et.park_copy_bytes > 0 and et.resume_copy_bytes > 0
+
+
+def test_gather_idle_row_write_matches_reference():
+    """The reference's gather decode gives every row not in
+    ``slot_tokens`` token 0 at position 0 and writes its K/V there, into
+    an occupied slot too.  The port does the same: after a step that
+    decodes slot b alone, slot a's position 0 holds the same new K/V in
+    both, and the rest of a's row is untouched."""
+    cj, ct = CONFIGS["micro"]
+    pj = jlm.init_params(cj, jax.random.PRNGKey(3))
+    pt = tlm.params_from_jax(jax.tree_util.tree_map(np.asarray, pj), "cpu")
+    rng = np.random.RandomState(3)
+    a, b = (rng.randint(1, cj.vocab, size=20).astype(np.int32)
+            for _ in range(2))
+    rows = []
+    for E, p in ((JEngine, pj), (TEngine, pt)):
+        eng = E(cj if E is JEngine else ct, p, n_slots=2, max_len=64,
+                pool_blocks=16, paged=False)
+        sa = eng.start_session("a", a, cached_hit=False)
+        sb = eng.start_session("b", b, cached_hit=False)
+        before = np.array(jnp.asarray(eng.cache["k"][:, sa]).astype(
+            jnp.float32)) if E is JEngine else eng.cache["k"][:, sa].float(
+            ).numpy().copy()
+        eng.decode({sb: int(b[-1])}, n_steps=1)
+        after = np.array(jnp.asarray(eng.cache["k"][:, sa]).astype(
+            jnp.float32)) if E is JEngine else eng.cache["k"][:, sa].float(
+            ).numpy()
+        assert not np.array_equal(after[:, 0], before[:, 0])
+        assert np.array_equal(after[:, 1:], before[:, 1:])
+        assert eng.slots[sa].length == 20
+        rows.append(after)
+    assert np.array_equal(rows[0][0], rows[1][0])      # layer 0: bit-exact
+    assert np.max(np.abs(rows[0] - rows[1])) < 2e-2
+
+
+def _identity_roundtrip(cfg, params, prompt, n_first=5, n_rest=3):
+    """Twin of tests/test_paged_decode.py::_identity_roundtrip on the
+    port: the paged engine with a park/resume in the middle emits the
+    same ids as an uninterrupted gather-mode decode, and moves no
+    park/resume bytes."""
+    eg = TEngine(cfg, params, n_slots=2, max_len=64, pool_blocks=16,
+                 paged=False)
+    sg = eg.start_session("x", prompt, cached_hit=False)
+    ref = eg.decode({sg: int(prompt[-1])}, n_steps=n_first + n_rest)[sg]
+
+    ep = TEngine(cfg, params, n_slots=2, max_len=64, pool_blocks=16,
+                 paged=True)
+    sp = ep.start_session("x", prompt, cached_hit=False)
+    first = ep.decode({sp: int(prompt[-1])}, n_steps=n_first)[sp]
+    assert ep.park_session("x")
+    ctx = np.concatenate([prompt, np.asarray(first, np.int32)])
+    sp2 = ep.start_session("x", ctx, cached_hit=True)
+    rest = ep.decode({sp2: int(ctx[-1])}, n_steps=n_rest)[sp2]
+    assert first + rest == ref
+    assert ep.park_copy_bytes == 0 and ep.resume_copy_bytes == 0
+    assert ep.pool.audit_blocks() == []
+
+
+@pytest.mark.parametrize("name,size", [("micro", 24),
+                                       ("llama3.2-tiny", 21)])
+def test_token_identity_paged_vs_gather(name, size):
+    ct = CONFIGS[name][1]
+    params = tlm.init_params(ct, seed=0, device="cpu")
+    rng = np.random.RandomState(size)
+    _identity_roundtrip(ct, params,
+                        rng.randint(1, ct.vocab, size=size).astype(np.int32))
 
 
 def test_export_import_and_handoff_match_jax():

@@ -12,7 +12,9 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "benchmarks" / name for name in (
+        "serve_bench_torch.py", "soak_bench_torch.py", "torch_common.py")]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")
@@ -63,8 +65,9 @@ def test_port_refuses_what_later_slices_port():
     with pytest.raises(NotImplementedError, match="later slice"):
         lm.init_params(mixtral_8x22b.tiny(), 0, device="cpu")
     params = lm.init_params(get_config("micro"), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="gather oracle"):
-        Engine(get_config("micro"), params, paged=False)
+    for paged in (True, False):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            Engine(mixtral_8x22b.tiny(), params, paged=paged)
 
 
 @pytest.mark.parametrize("mod", ["mixtral_8x22b", "deepseek_v2_236b",
@@ -83,17 +86,6 @@ def test_model_functions_still_refuse_moe_mla_encdec_vlm(mod):
                  lambda: lm.decode_step({}, tokens[:, :1], {}, 0, cfg)):
         with pytest.raises(NotImplementedError, match="later slice"):
             call()
-
-
-@pytest.mark.parametrize("name", ["micro", "llama3.2-3b"])
-def test_dense_decode_step_is_a_later_slice(name):
-    """Dense models decode through decode_step_paged; decode_step over a
-    contiguous dense cache is not ported yet and says so."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    tokens = torch.zeros(1, 1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="decode_step_paged"):
-        lm.decode_step({}, tokens, {}, 0, get_config(name))
 
 
 @pytest.mark.parametrize("mod", ["rwkv6_7b", "jamba_v0_1_52b"])

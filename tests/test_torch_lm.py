@@ -2,8 +2,9 @@
 reference on the same carried params: the parameter bridge is bit-exact,
 and prefill agrees within the bf16 tolerance 2e-2 (tests/test_kernels.py)
 for ``micro``, ``llama3.2-tiny`` (tied embeddings), ``rwkv6-tiny`` (ssm)
-and ``jamba-tiny`` (hybrid); paged decode for the two dense ones, and
-``decode_step`` over carried states for the ssm and hybrid ones.  bf16 states that reach past 2 (rwkv's token-shift
+and ``jamba-tiny`` (hybrid); paged decode and the contiguous-cache
+``decode_step`` for the two dense ones, and ``decode_step`` over carried
+states for the ssm and hybrid ones.  bf16 states that reach past 2 (rwkv's token-shift
 states are normed activations) are held to 2e-2 of their largest
 magnitude, since one bf16 rounding there is 1.6e-2 or more."""
 import jax
@@ -259,3 +260,53 @@ def test_init_params_shapes_match_the_reference_tree(name):
     assert shapes_t == shapes_j
     again = tlm.init_params(ct, seed=0, device="cpu")
     assert torch.equal(pt["embed"], again["embed"])     # seeded
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_decode_step_matches_jax(name):
+    """The contiguous-cache dense ``decode_step`` (the gather engine's):
+    from the reference's prefill cache, carried bit-exactly, three steps at
+    per-row positions, the last row at position 0 as the engine's idle rows
+    are.  Logits agree within TOL.  The caches are bit-identical in bf16
+    but for what the steps wrote past the first layer: there the residual
+    stream has been through one layer of each framework's rounding, and
+    the written K/V may sit one bf16 step apart (seen: 2^-9, 2^-10), held
+    to TOL."""
+    cj, ct, pj, pt = _carry(name, 2)
+    rng = np.random.RandomState(7)
+    B, S, max_len = 3, 12, 24
+    toks = rng.randint(1, cj.vocab, size=(B, S))
+    _, cache_j = jlm.prefill(pj, {"tokens": jnp.asarray(toks)}, cj, ENV,
+                             max_len=max_len)
+    cache_t = {k: torch.from_numpy(np.array(a).view(np.int16)).view(
+        torch.bfloat16) for k, a in cache_j.items()}
+    pos = np.asarray([S, S - 3, 0], np.int32)
+    written = np.zeros((B, max_len), bool)
+    for step in range(3):
+        tok = rng.randint(1, cj.vocab, size=(B, 1)).astype(np.int32)
+        lj, cache_j = jlm.decode_step(pj, jnp.asarray(tok), cache_j,
+                                      jnp.asarray(pos), cj, ENV)
+        lt, cache_t = tlm.decode_step(pt, torch.from_numpy(tok).long(),
+                                      cache_t, torch.from_numpy(pos), ct)
+        assert lt.dtype == torch.float32 and lt.shape == lj.shape
+        assert _err(lt, lj) < TOL, step
+        written[np.arange(B), pos] = True
+        for key in ("k", "v"):
+            a = cache_t[key].view(torch.int16).numpy()
+            b = np.asarray(cache_j[key]).view(np.int16)
+            assert np.array_equal(a[0], b[0]), (step, key)
+            assert np.array_equal(a[1:, ~written], b[1:, ~written]), \
+                (step, key)
+            assert _close(cache_t[key][1:], cache_j[key][1:]), (step, key)
+        pos = pos + np.asarray([1, 1, 0], np.int32)
+
+
+def test_decode_step_refuses_a_position_past_the_cache():
+    """The reference clamps such a write to the last slot, the port's
+    append would drop it: the port raises instead of parting silently."""
+    _, ct, _, pt = _carry("micro", 0)
+    cache = tlm.init_cache(ct, 2, 16, device="cpu")
+    tok = torch.ones(2, 1, dtype=torch.long)
+    tlm.decode_step(pt, tok, cache, torch.tensor([15, 3]), ct)
+    with pytest.raises(RuntimeError, match="max_len"):
+        tlm.decode_step(pt, tok, cache, torch.tensor([16, 3]), ct)

@@ -68,6 +68,49 @@ def test_runtime_matches_jax_runtime(disaggregate):
     assert stats_t["resume_copy_bytes"] == 0
 
 
+def test_runtime_paged_vs_gather_summary_identical():
+    """Twin of tests/test_paged_decode.py::
+    test_runtime_paged_vs_gather_summary_identical on the port: paged and
+    gather runtimes give the same summary; only the device-copy
+    accounting differs (paged park/resume: 0).  The ids are not compared:
+    a gather round writes its idle rows' K/V at position 0, into occupied
+    slots too (``Engine.decode``), so the two modes may part on ids."""
+    outs, stats = [], []
+    for paged in (True, False):
+        rt = TRuntime(CFG_T, PARAMS_T, seed=0, n_workers=2, n_slots=2,
+                      max_len=256, pool_blocks=96, paged=paged)
+        for sid, tenant, steps in _steps(5):
+            rt.submit(TReq(sid, tenant, steps))
+        rt.run()
+        rt.check_conservation()
+        outs.append(repr(rt.summarize()))
+        stats.append(rt.stats())
+    assert outs[0] == outs[1]
+    p, g = stats
+    assert p["park_copy_bytes"] == 0 and p["resume_copy_bytes"] == 0
+    assert g["park_copy_bytes"] > 0 and g["resume_copy_bytes"] > 0
+    assert p["regen_tokens"] == g["regen_tokens"]
+
+
+def test_gather_runtime_matches_jax_gather_runtime():
+    """The gather runtime against the reference's on the same carried
+    params: the same summary, stats (copy bytes included) and context
+    lengths."""
+    results = []
+    for Runtime, Req, cfg, params in ((JRuntime, JReq, CFG_J, PARAMS_J),
+                                      (TRuntime, TReq, CFG_T, PARAMS_T)):
+        rt = Runtime(cfg, params, seed=0, n_workers=2, n_slots=2,
+                     max_len=256, pool_blocks=96, paged=False)
+        for sid, tenant, steps in _steps(5):
+            rt.submit(Req(sid, tenant, steps))
+        rt.run()
+        rt.check_conservation()
+        lens = {sid: len(rt.sessions[sid].ctx) for sid, _, _ in _steps(5)}
+        results.append((repr(rt.summarize()), rt.stats(), lens))
+    assert results[1] == results[0]
+    assert results[1][1]["park_copy_bytes"] > 0
+
+
 def test_server_run_task_matches_jax_server():
     outs = []
     for Server, Req, cfg, params in ((JServer, JReq, CFG_J, PARAMS_J),
