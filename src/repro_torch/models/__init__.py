@@ -1,1 +1,2 @@
-"""PyTorch model code for the uniform GQA decoder (dense family)."""
+"""PyTorch model code: the uniform GQA decoder (dense, moe, vlm), rwkv6
+(ssm) and jamba (hybrid)."""

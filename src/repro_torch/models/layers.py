@@ -1,6 +1,7 @@
 """Model primitives in PyTorch: the twins of the functions of
 ``repro.models.layers`` that the port's model paths run (the uniform GQA
-decoder, rwkv6's group norm, jamba's attention slot and dense-impl MoE).
+decoder, the dense-impl MoE of mixtral's layers and jamba's slots,
+rwkv6's group norm).
 
 Attention goes through the port's kernels: ``gqa_attention_full`` calls
 ``flash_prefill``; ``gqa_attention_decode_paged`` and

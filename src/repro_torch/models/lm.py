@@ -1,26 +1,33 @@
 """Decoder-only LM in PyTorch: init, the JAX parameter bridge, prefill,
-decode and full-sequence logits for the dense (uniform GQA), ssm (rwkv6)
-and hybrid (jamba superblocks) families.
+decode and full-sequence logits for the dense and moe (uniform GQA), vlm
+(uniform GQA after a patch stream), ssm (rwkv6) and hybrid (jamba
+superblocks) families.
 
 The twin of ``repro.models.lm``.  Params are a plain dict with the
 reference tree's keys and shapes (bf16, except mamba's f32 ``A_log``;
 math accumulates in f32 where the reference's does):
 
-- dense: ``layers`` holds ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}`` and
-  ``mlp.{w1,w3,w2}`` stacked on a leading layer axis;
+- dense / vlm: ``layers`` holds ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``
+  and ``mlp.{w1,w3,w2}`` stacked on a leading layer axis; moe's ``mlp``
+  is an expert stack ``{router, w1, w3, w2}`` (the dense impl: every
+  expert computed, then gated);
 - ssm: ``layers`` holds ``ln1``, ``ln2``, ``tm`` (time mix) and ``cm``
   (channel mix) stacked the same way;
 - hybrid: ``superblocks`` stacks, per superblock of ``attn_period`` slots,
   ``attn``/``attn_ln`` and the per-slot ``mamba``, ``moe`` and ``ffn``
   stacks with their norms.
 
+A vlm batch carries ``patches`` (B, P, d_model), pre-projected embeddings
+put before the token embeddings; positions run 0..P+S-1, so a decode step
+after it takes positions counted with P.
+
 The reference's layer ``scan`` is a Python loop over the stacked axis.
-Caches: dense {k, v} (L, B, max_len, K, dh); ssm {wkv, shift_tm,
-shift_cm}; hybrid {k, v} per superblock plus {conv, ssm} per mamba slot.
-``decode_step`` (every family, over these caches) and ``decode_step_paged``
-(dense, over the serving pool) update them in place, where the reference
-returns new ones.  The moe and vlm families (uniform MoE, the patch
-stream), MLA and enc-dec are later slices of the port and raise.
+Caches: dense / moe / vlm {k, v} (L, B, max_len, K, dh); ssm {wkv,
+shift_tm, shift_cm}; hybrid {k, v} per superblock plus {conv, ssm} per
+mamba slot.  ``decode_step`` (every family, over these caches) and
+``decode_step_paged`` (the uniform GQA families, over the serving pool)
+update them in place, where the reference returns new ones.  MLA and
+enc-dec are not ported and raise.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from repro_torch.models import rwkv as R
 
 F32 = torch.float32
 BF16 = torch.bfloat16
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -46,7 +53,7 @@ def check_family(cfg: ModelConfig) -> None:
             or bool(cfg.attn_period) != (cfg.family == "hybrid"):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the port's model functions cover "
-            f"the dense, ssm and hybrid families; moe, vlm, MLA and "
+            f"the dense, moe, vlm, ssm and hybrid families; MLA and "
             f"enc-dec come in a later slice")
 
 
@@ -188,9 +195,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             "ffn": _ffn_init(I, cfg, nsb, nf), "ffn_ln": I.full(nsb, nf, d),
         }
     else:
+        moe = {cfg.layer_is_moe(i) for i in range(n)}
+        if len(moe) > 1:
+            # the reference stacks the per-layer trees, which needs every
+            # layer alike: its init fails on such a config as well
+            raise ValueError(f"{cfg.name}: a uniform stack with MoE on "
+                             f"some layers only (moe_layer_period "
+                             f"{cfg.moe_layer_period}) cannot be stacked")
         params["layers"] = {"ln1": I.full(n, d), "ln2": I.full(n, d),
                             "attn": _attn_init(I, cfg, n),
-                            "mlp": _ffn_init(I, cfg, n)}
+                            "mlp": (_moe_init if moe.pop() else _ffn_init)(
+                                I, cfg, n)}
     return params
 
 
@@ -237,12 +252,23 @@ def unembed(params, x, cfg):
 # ===========================================================================
 # layer stacks
 # ===========================================================================
+def _mlp(h, p, cfg):
+    """The uniform stack's FFN: the dense-impl MoE where the layer has a
+    router, as the reference engine runs it.  The dense impl has no
+    capacity, so each token's output depends on that token alone: the
+    engine's prefill padding goes through the router too and cannot move
+    a real token's output (the reference relies on the same fact)."""
+    if "router" in p:
+        return L.moe_block(h, p, cfg)
+    return L.ffn_swiglu(h, p)
+
+
 def _uniform_block(x, lp, cfg, positions):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     y, k, v = L.gqa_attention_full(h, lp["attn"], cfg, positions)
     x = L.pin_bf16(x + L.pin_bf16(y))
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y = L.ffn_swiglu(h, lp["mlp"])
+    y = _mlp(h, lp["mlp"], cfg)
     return L.pin_bf16(x + L.pin_bf16(y)), (k, v)
 
 
@@ -264,7 +290,7 @@ def _uniform_decode_block(x, lp, kc, vc, cfg, pos):
     y, kc, vc = L.gqa_attention_decode(h, lp["attn"], cfg, kc, vc, pos)
     x = L.pin_bf16(x + L.pin_bf16(y))
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y = L.ffn_swiglu(h, lp["mlp"])
+    y = _mlp(h, lp["mlp"], cfg)
     return L.pin_bf16(x + L.pin_bf16(y))
 
 
@@ -277,7 +303,7 @@ def _uniform_decode_block_paged(x, lp, kp, vp, tables, pos, block_ids,
                                              tables, pos, block_ids, offsets)
     x = L.pin_bf16(x + L.pin_bf16(y))
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y = L.ffn_swiglu(h, lp["mlp"])
+    y = _mlp(h, lp["mlp"], cfg)
     return L.pin_bf16(x + L.pin_bf16(y)), kp, vp
 
 
@@ -401,8 +427,13 @@ def _rwkv_decode_block(x, lp, st, cfg):
 # public entry points
 # ===========================================================================
 def _assemble_inputs(params, batch, cfg):
-    """Text only.  Returns (x, positions), positions counted from 0."""
+    """Returns (x, positions), positions counted from 0.  A vlm batch's
+    ``patches`` (B, P, d_model) come first, in bf16; a vlm batch without
+    them raises ``KeyError``, as the reference's does (text-only serving
+    passes an empty stream)."""
     x = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(BF16), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
     return x, positions
@@ -414,8 +445,9 @@ def _final(params, x, cfg):
 
 
 def forward_logits(params, batch, cfg: ModelConfig):
-    """Full-sequence forward.  batch["tokens"]: (B, S) integer ids.
-    Returns logits (B, S, V) f32."""
+    """Full-sequence forward.  batch["tokens"]: (B, S) integer ids, after
+    vlm's ``batch["patches"]`` (B, P, d_model).  Returns logits (B, P + S,
+    V) f32 (P = 0 outside vlm)."""
     check_family(cfg)
     x, positions = _assemble_inputs(params, batch, cfg)
     if cfg.family == "ssm":
@@ -455,10 +487,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=BF16,
 
 def prefill(params, batch, cfg: ModelConfig,
             max_len: Optional[int] = None):
-    """Full-sequence prefill.  batch["tokens"]: (B, S) integer ids.
-    Returns (last_logits (B,1,V) f32, cache): dense {"k", "v": (L, B,
-    max_len, K, dh)}; ssm {"wkv", "shift_tm", "shift_cm"}; hybrid {"k",
-    "v": (nsb, B, max_len, K, dh), "conv", "ssm"}."""
+    """Full-sequence prefill.  batch["tokens"]: (B, S) integer ids, after
+    vlm's ``batch["patches"]`` (B, P, d_model); ``max_len`` counts the
+    patches too.  Returns (last_logits (B,1,V) f32, cache): dense / moe /
+    vlm {"k", "v": (L, B, max_len, K, dh)}; ssm {"wkv", "shift_tm",
+    "shift_cm"}; hybrid {"k", "v": (nsb, B, max_len, K, dh), "conv",
+    "ssm"}."""
     check_family(cfg)
     x, positions = _assemble_inputs(params, batch, cfg)
     max_len = max_len or x.shape[1]
@@ -485,9 +519,9 @@ def _pad_seq(x, max_len, axis):
 
 def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
     """One decode step.  tokens: (B, 1) ids; pos: an int or (B,) position
-    of the new token; cache: ``prefill``'s or ``init_cache``'s, updated in
-    place (the reference returns a new one).  Returns (logits (B,1,V) f32,
-    cache).
+    of the new token (after a vlm prefill, counted with its patches);
+    cache: ``prefill``'s or ``init_cache``'s, updated in place (the
+    reference returns a new one).  Returns (logits (B,1,V) f32, cache).
 
     A position at or past the k/v cache's ``max_len`` raises (on the card,
     as a device-side assert: no host sync).  The reference's
@@ -505,7 +539,7 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
         torch._assert_async((pos < cache["k"].shape[2]).all(),
                             "decode_step: a position at or past the cache's "
                             "max_len")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         for i in range(cfg.n_layers):
             x = _uniform_decode_block(x, _layer(params["layers"], i),
                                       cache["k"][i], cache["v"][i], cfg, pos)
@@ -536,9 +570,10 @@ def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
     tables: (B, max_blocks) int32 (rows padded with any in-range id);
     pos: (B,) int32 position of the new token; block_ids/offsets: (B,)
     int32 append destination of its K/V (idle rows pass num_blocks, a
-    drop sentinel).  Covers the uniform GQA-cache families, as the
-    reference's does.  The pools are updated in place, where the reference
-    returns new arrays.  Returns (logits (B,1,V) f32, k_pool, v_pool)."""
+    drop sentinel).  Covers the uniform GQA-cache families (dense, moe,
+    vlm), as the reference's does.  The pools are updated in place, where
+    the reference returns new arrays.  Returns (logits (B,1,V) f32,
+    k_pool, v_pool)."""
     check_family(cfg)
     if cfg.family == "ssm" or cfg.attn_period:
         raise ValueError("paged decode covers the uniform GQA-cache "

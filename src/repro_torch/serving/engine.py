@@ -37,19 +37,18 @@ _PREFILL_BUCKET = 32
 
 
 def check_engine_family(cfg: ModelConfig) -> None:
-    """The families the engine serves.  Like the reference's engine
-    (``repro/serving/engine.py:103``) it refuses what has no GQA (k, v)
-    cache: ssm, hybrid, enc-dec and MLA.  Of the decoder-only KV families
-    the port serves dense; moe and vlm come in a later slice."""
-    if cfg.enc_dec or cfg.family not in ("dense", "moe", "vlm") \
-            or cfg.use_mla:
+    """The families the engine serves, those of the reference's engine
+    (``repro/serving/engine.py:103-106``): the decoder-only families with
+    a GQA (k, v) cache, dense, moe and vlm.  ssm, hybrid, enc-dec and MLA
+    raise ``ValueError`` where the reference asserts."""
+    if cfg.enc_dec or cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"{cfg.name} ({cfg.family}): the engine serves "
                          f"decoder-only GQA KV families, as the reference "
                          f"engine does")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): the port's "
-                                  f"engine serves the dense family; moe and "
-                                  f"vlm come in a later slice")
+    if cfg.use_mla:
+        raise ValueError(f"{cfg.name}: the engine's KV paths assume the GQA "
+                         f"(k, v) cache layout, as the reference engine's "
+                         f"do")
 
 
 @dataclasses.dataclass
@@ -139,16 +138,21 @@ class Engine:
         Token length is padded up to the reference's compile quantum —
         lcm(32-token bucket, block size) — so a bucket boundary never
         splits a KV block.  Padding is exact under the causal mask:
-        positions < n attend to the same key set either way."""
+        positions < n attend to the same key set either way.  A vlm
+        serves text only: its patch stream is empty (1, 0, d_model), as
+        in the reference, which is exact, not an approximation."""
         n = len(tokens)
         pad_to = min(self.max_len, -(-n // self._prefill_quantum)
                      * self._prefill_quantum)
         pad_to = max(pad_to, n)
         padded = np.zeros(pad_to, np.int32)
         padded[:n] = tokens
-        _, cache = lm.prefill(
-            self.params, {"tokens": self._ints(padded[None], torch.long)},
-            self.cfg, max_len=pad_to)
+        batch = {"tokens": self._ints(padded[None], torch.long)}
+        if self.cfg.family == "vlm":
+            batch["patches"] = torch.zeros(1, 0, self.cfg.d_model,
+                                           dtype=torch.bfloat16,
+                                           device=self.device)
+        _, cache = lm.prefill(self.params, batch, self.cfg, max_len=pad_to)
         return cache["k"][:, 0, :n], cache["v"][:, 0, :n]
 
     # -- public API ------------------------------------------------------------

@@ -36,7 +36,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 64, 128])
-@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("G", [1, 3, 4, 6, 7, 8])
 @pytest.mark.parametrize("S", [32, 200, 1000, 1056])
 @pytest.mark.parametrize("window", [0, 32, 4096])
 def test_flash_kernel_matches_plain_on_card(cuda, D, G, S, window):
@@ -51,6 +51,27 @@ def test_flash_kernel_matches_plain_on_card(cuda, D, G, S, window):
     assert F.flash_prefill.launches == before + 1
     ref = F.flash_prefill_plain(q, k, v, causal=True, window=window)
     assert float((out.float() - ref.float()).abs().max()) < TOL
+
+
+@pytest.mark.cuda
+def test_flash_window_bites_at_mixtral_width(cuda):
+    """mixtral-8x22b's prefill: S=4608 past its window of 4096, 48 query
+    heads over 8 KV heads (G=6), D=128: the first 512 queries see every
+    earlier key, the rest a band of 4096, so the kernel's key loop starts
+    past 0 and skips whole tiles."""
+    g = torch.Generator(device=cuda).manual_seed(4608)
+    S, K, G, D = 4608, 8, 6, 128
+    q, k, v = (torch.randn(1, S, h, D, generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (G * K, K, K))
+    out = F.flash_prefill(q, k, v, causal=True, window=4096)
+    ref = F.flash_prefill_plain(q, k, v, causal=True, window=4096)
+    err = float((out.float() - ref.float()).abs().max())
+    assert err < TOL
+    # the window does bite: past it, the unwindowed answer is farther off
+    full = F.flash_prefill_plain(q, k, v, causal=True)
+    bite = float((out[:, 4096:].float() - full[:, 4096:].float()).abs()
+                 .max())
+    assert bite > max(4 * err, 1e-3)
 
 
 def _paged_case(cuda, g, lens, G, dh, K=2, blk=16, nb=16):
@@ -84,7 +105,7 @@ def _paged_lens(blk, nb, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [16, 64, 128])
-@pytest.mark.parametrize("G", [3, 4, 8])
+@pytest.mark.parametrize("G", [3, 4, 6, 7, 8])
 @pytest.mark.parametrize("window", [0, 32, 4096])
 def test_paged_kernels_match_plain_on_card(cuda, dh, G, window):
     """Append (with the drop sentinel) then decode, every row at a length
@@ -103,6 +124,40 @@ def test_paged_kernels_match_plain_on_card(cuda, dh, G, window):
     ref = P.paged_decode_plain(q, kp2, vp2, tables, lens, window=window)
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     assert float((out.float() - ref.float()).abs().max()) < TOL
+
+
+@pytest.mark.cuda
+def test_paged_window_bites_at_mixtral_width(cuda):
+    """mixtral-8x22b's served decode: B=4 over 8 KV heads at G=6, dh=128,
+    block 16, max_len 8192 (nb 512), window 4096; one live row of 4640
+    tokens appending its last, three idle rows of len 1 on zero tables
+    with the append on the drop sentinel."""
+    g = torch.Generator(device=cuda).manual_seed(4640)
+    B, H, K, dh, blk, nb = 4, 48, 8, 128, 16, 512
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda).to(  # noqa
+        torch.bfloat16)
+    nblocks = nb + 1
+    q, kn, vn = mk(B, H, dh), mk(B, K, dh), mk(B, K, dh)
+    kp, vp = mk(nblocks, blk, K, dh), mk(nblocks, blk, K, dh)
+    tables = torch.zeros(B, nb, dtype=torch.int32, device=cuda)
+    tables[0] = torch.randperm(nb, generator=g, device=cuda).to(
+        torch.int32) + 1
+    lens = torch.tensor([4640, 1, 1, 1], dtype=torch.int32, device=cuda)
+    ablk = torch.full((B,), nblocks, dtype=torch.int32, device=cuda)
+    ablk[0] = tables[0, 4639 // blk]
+    aoff = torch.tensor([4639 % blk, 0, 0, 0], dtype=torch.int32,
+                        device=cuda)
+    kp2, vp2 = kp.clone(), vp.clone()
+    P.paged_append(kp, vp, kn, vn, ablk, aoff)
+    out = P.paged_decode(q, kp, vp, tables, lens, window=4096)
+    P.paged_append_plain(kp2, vp2, kn, vn, ablk, aoff)
+    ref = P.paged_decode_plain(q, kp2, vp2, tables, lens, window=4096)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    err = float((out.float() - ref.float()).abs().max())
+    assert err < TOL
+    full = P.paged_decode_plain(q, kp2, vp2, tables, lens)
+    bite = float((out[0].float() - full[0].float()).abs().max())
+    assert bite > max(4 * err, 1e-3)
 
 
 @pytest.mark.cuda

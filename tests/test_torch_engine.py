@@ -3,7 +3,19 @@ the same admit -> decode -> park -> resume-with-delta -> decode sequence
 on the same carried params gives identical token ids and identical
 host-side state (block tables, lens, free list, copy bytes), in paged and
 in gather mode, and the pool's random lifecycle interleavings draw the
-same block ids as the reference pool."""
+same block ids as the reference pool.  The engines run micro and
+llama3.2-tiny (dense), mixtral-tiny (moe, a window of 32 that session
+``a`` passes) and llava-tiny (vlm, text only: an empty patch stream).
+mixtral's reference engine runs under ``jax.disable_jit()``, so its
+router picks are concrete and the port is held to them
+(``torch_routing.SameRouting``), and its greedy picks are held to the
+reference's where the logits nearly tie (``SameArgmax``: every row's
+logits within the lm tests' limit, at most one parted pick in a script;
+seen on mixtral-tiny's gather script: a top-2 gap of 1.9e-4 against a
+logit difference of 1.7e-3).  The dense and vlm engines must give the
+reference's ids exactly."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,19 +24,25 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)           # tiny shapes: threads only add overhead
 
-from repro.configs import get_config, llama3_2_3b, load_all  # noqa: E402
+from repro.configs import (get_config, llama3_2_3b,  # noqa: E402
+                           llava_next_34b, load_all, mixtral_8x22b)
 from repro.models import lm as jlm  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro.serving.kvcache import PagedKVPool as JPool  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs import llama3_2_3b as tllama  # noqa: E402
+from repro_torch.configs import llava_next_34b as tllava  # noqa: E402
+from repro_torch.configs import mixtral_8x22b as tmixtral  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serving.kvcache import PagedKVPool as TPool  # noqa: E402
+from torch_routing import SameArgmax, SameRouting  # noqa: E402
 
 load_all()
 CONFIGS = {"micro": (get_config("micro"), tget("micro")),
-           "llama3.2-tiny": (llama3_2_3b.tiny(), tllama.tiny())}
+           "llama3.2-tiny": (llama3_2_3b.tiny(), tllama.tiny()),
+           "mixtral-tiny": (mixtral_8x22b.tiny(), tmixtral.tiny()),
+           "llava-tiny": (llava_next_34b.tiny(), tllava.tiny())}
 
 
 def _state(eng):
@@ -70,15 +88,32 @@ def _script(eng, rng_seed, vocab):
     return ids, states
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_engine_matches_jax_engine(name):
+def _scripts(name, monkeypatch, **kw):
+    """``_script`` through the reference's engine, then the port's, on
+    the same carried params.  With MoE, the reference runs under
+    ``jax.disable_jit()`` and records its router picks, which the port's
+    router then replays, and the port's greedy picks are held to the
+    reference's at logit near-ties (``SameArgmax``).  Returns (ids_j,
+    states_j, ids_t, states_t, the port's engine)."""
     cj, ct = CONFIGS[name]
     pj = jlm.init_params(cj, jax.random.PRNGKey(4))
     pt = tlm.params_from_jax(jax.tree_util.tree_map(np.asarray, pj), "cpu")
-    kw = dict(n_slots=3, max_len=96, pool_blocks=12, block_size=8)
+    kw = dict(n_slots=3, max_len=96, pool_blocks=12, block_size=8, **kw)
     ej, et = JEngine(cj, pj, **kw), TEngine(ct, pt, **kw)
-    ids_j, states_j = _script(ej, 5, cj.vocab)
+    routing = greedy = None
+    if cj.n_experts:
+        routing = SameRouting(monkeypatch)
+        greedy = SameArgmax(monkeypatch, ej)
+    with jax.disable_jit() if routing else contextlib.nullcontext():
+        ids_j, states_j = _script(ej, 5, cj.vocab)
     ids_t, states_t = _script(et, 5, cj.vocab)
+    assert not (routing and (routing.calls or greedy.logits))
+    return ids_j, states_j, ids_t, states_t, et
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_engine_matches_jax_engine(name, monkeypatch):
+    ids_j, states_j, ids_t, states_t, et = _scripts(name, monkeypatch)
     assert ids_t == ids_j
     assert states_t == states_j
     assert et.pool.audit_blocks() == []
@@ -86,18 +121,12 @@ def test_engine_matches_jax_engine(name):
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_gather_engine_matches_jax_gather_engine(name):
+def test_gather_engine_matches_jax_gather_engine(name, monkeypatch):
     """``Engine(paged=False)``, the gather oracle, against the reference's:
     the same script gives the same ids and host state, and the park and
     the resume copy the same nonzero bytes."""
-    cj, ct = CONFIGS[name]
-    pj = jlm.init_params(cj, jax.random.PRNGKey(4))
-    pt = tlm.params_from_jax(jax.tree_util.tree_map(np.asarray, pj), "cpu")
-    kw = dict(n_slots=3, max_len=96, pool_blocks=12, block_size=8,
-              paged=False)
-    ej, et = JEngine(cj, pj, **kw), TEngine(ct, pt, **kw)
-    ids_j, states_j = _script(ej, 5, cj.vocab)
-    ids_t, states_t = _script(et, 5, cj.vocab)
+    ids_j, states_j, ids_t, states_t, et = _scripts(name, monkeypatch,
+                                                    paged=False)
     assert ids_t == ids_j
     assert states_t == states_j
     assert et.pool.audit_blocks() == []
@@ -161,7 +190,9 @@ def _identity_roundtrip(cfg, params, prompt, n_first=5, n_rest=3):
 
 
 @pytest.mark.parametrize("name,size", [("micro", 24),
-                                       ("llama3.2-tiny", 21)])
+                                       ("llama3.2-tiny", 21),
+                                       ("mixtral-tiny", 40),
+                                       ("llava-tiny", 30)])
 def test_token_identity_paged_vs_gather(name, size):
     ct = CONFIGS[name][1]
     params = tlm.init_params(ct, seed=0, device="cpu")

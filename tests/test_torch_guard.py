@@ -58,23 +58,29 @@ def test_init_params_default_device_is_the_card():
 
 
 def test_port_refuses_what_later_slices_port():
-    from repro_torch.configs import get_config
-    from repro_torch.configs import mixtral_8x22b
+    """MLA (deepseek-v2) is a later slice: the model functions raise
+    ``NotImplementedError``, and the engine refuses it as the reference's
+    does (an assert there, a ``ValueError`` here)."""
+    from repro.configs import deepseek_v2_236b as ref_mod
+    from repro.serving.engine import Engine as RefEngine
+    from repro_torch.configs import deepseek_v2_236b, get_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
+    cfg = deepseek_v2_236b.tiny()
     with pytest.raises(NotImplementedError, match="later slice"):
-        lm.init_params(mixtral_8x22b.tiny(), 0, device="cpu")
+        lm.init_params(cfg, 0, device="cpu")
     params = lm.init_params(get_config("micro"), 0, device="cpu")
     for paged in (True, False):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Engine(mixtral_8x22b.tiny(), params, paged=paged)
+        with pytest.raises(ValueError, match="GQA \\(k, v\\) cache"):
+            Engine(cfg, params, paged=paged)
+    with pytest.raises(AssertionError, match="GQA \\(k, v\\) cache"):
+        RefEngine(ref_mod.tiny(), None)
 
 
-@pytest.mark.parametrize("mod", ["mixtral_8x22b", "deepseek_v2_236b",
-                                 "seamless_m4t_large_v2", "llava_next_34b"])
-def test_model_functions_still_refuse_moe_mla_encdec_vlm(mod):
-    """Uniform moe (mixtral), MLA (deepseek-v2), enc-dec (seamless) and
-    vlm (llava) are later slices: every model entry point raises."""
+@pytest.mark.parametrize("mod", ["deepseek_v2_236b", "seamless_m4t_large_v2"])
+def test_model_functions_still_refuse_mla_encdec(mod):
+    """MLA (deepseek-v2) and enc-dec (seamless) are later slices: every
+    model entry point raises."""
     import importlib
     from repro_torch.models import lm
     cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
@@ -88,20 +94,52 @@ def test_model_functions_still_refuse_moe_mla_encdec_vlm(mod):
             call()
 
 
-@pytest.mark.parametrize("mod", ["rwkv6_7b", "jamba_v0_1_52b"])
-def test_model_functions_take_ssm_and_hybrid(mod):
+@pytest.mark.parametrize("mod", ["rwkv6_7b", "jamba_v0_1_52b",
+                                 "mixtral_8x22b", "llava_next_34b"])
+def test_model_functions_take_the_ported_families(mod):
+    """ssm, hybrid, moe and vlm (with an empty patch stream) through
+    prefill and decode_step; paged decode takes the uniform GQA families
+    and refuses the others."""
     import importlib
     from repro_torch.models import lm
     cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
     params = lm.init_params(cfg, 0, device="cpu")
     tokens = torch.arange(1, 7, dtype=torch.long)[None]
-    last, cache = lm.prefill(params, {"tokens": tokens}, cfg, max_len=8)
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros(1, 0, cfg.d_model,
+                                       dtype=torch.bfloat16)
+    last, cache = lm.prefill(params, batch, cfg, max_len=8)
     logits, _ = lm.decode_step(params, tokens[:, :1], cache, 6, cfg)
     assert last.shape == logits.shape == (1, 1, cfg.vocab)
     assert sorted(cache) == sorted(lm.init_cache(cfg, 1, 8, device="cpu"))
-    with pytest.raises(ValueError, match="uniform GQA-cache"):
-        lm.decode_step_paged(params, tokens[:, :1], None, None, None, None,
-                             None, None, cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        with pytest.raises(ValueError, match="uniform GQA-cache"):
+            lm.decode_step_paged(params, tokens[:, :1], None, None, None,
+                                 None, None, None, cfg)
+        return
+    # the contiguous cache read as one pool block of 8: the same step again
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    out, _, _ = lm.decode_step_paged(params, tokens[:, :1], cache["k"],
+                                     cache["v"], i32([0]), i32(6), i32(0),
+                                     i32(6), cfg)
+    assert torch.equal(out, logits)
+
+
+@pytest.mark.parametrize("mod", ["llama3_2_3b", "mixtral_8x22b",
+                                 "llava_next_34b"])
+def test_engine_takes_the_families_the_reference_engine_takes(mod):
+    """dense, moe and vlm: the port's engine admits them in both modes,
+    as the reference's does."""
+    import importlib
+    from repro.serving.engine import Engine as RefEngine
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
+    params = lm.init_params(cfg, 0, device="cpu")
+    for paged in (True, False):
+        Engine(cfg, params, paged=paged)
+    RefEngine(importlib.import_module(f"repro.configs.{mod}").tiny(), None)
 
 
 @pytest.mark.parametrize("mod", ["rwkv6_7b", "jamba_v0_1_52b"])

@@ -1,12 +1,16 @@
 """The port's model code (``repro_torch.models.lm``) against the JAX
 reference on the same carried params: the parameter bridge is bit-exact,
 and prefill agrees within the bf16 tolerance 2e-2 (tests/test_kernels.py)
-for ``micro``, ``llama3.2-tiny`` (tied embeddings), ``rwkv6-tiny`` (ssm)
-and ``jamba-tiny`` (hybrid); paged decode and the contiguous-cache
-``decode_step`` for the two dense ones, and ``decode_step`` over carried
-states for the ssm and hybrid ones.  bf16 states that reach past 2 (rwkv's token-shift
-states are normed activations) are held to 2e-2 of their largest
-magnitude, since one bf16 rounding there is 1.6e-2 or more."""
+for ``micro``, ``llama3.2-tiny`` (tied embeddings), ``mixtral-tiny``
+(moe, a window of 32 that S = 70 passes), ``llava-tiny`` (vlm, an empty
+patch stream; 8 patches in the vlm tests), ``rwkv6-tiny`` (ssm) and
+``jamba-tiny`` (hybrid); paged decode and the contiguous-cache
+``decode_step`` for the four uniform ones, and ``decode_step`` over
+carried states for the ssm and hybrid ones.  The MoE configs are held to
+the reference's router picks (``torch_routing.SameRouting``).  bf16
+states that reach past 2 (rwkv's token-shift states are normed
+activations) are held to 2e-2 of their largest magnitude, since one bf16
+rounding there is 1.6e-2 or more."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,16 +20,17 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)           # tiny shapes: threads only add overhead
 
 from repro.configs import (get_config, jamba_v0_1_52b, llama3_2_3b,  # noqa
-                           load_all, rwkv6_7b)
-from repro.models import layers as jl  # noqa: E402
+                           llava_next_34b, load_all, mixtral_8x22b, rwkv6_7b)
 from repro.models import lm as jlm  # noqa: E402
 from repro.models.sharding import ShardingEnv  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs import jamba_v0_1_52b as tjamba  # noqa: E402
 from repro_torch.configs import llama3_2_3b as tllama  # noqa: E402
+from repro_torch.configs import llava_next_34b as tllava  # noqa: E402
+from repro_torch.configs import mixtral_8x22b as tmixtral  # noqa: E402
 from repro_torch.configs import rwkv6_7b as trwkv  # noqa: E402
-from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
+from torch_routing import SameRouting  # noqa: E402
 
 load_all()
 TOL = 2e-2
@@ -34,53 +39,11 @@ ENV = ShardingEnv(None, opts={"remat": False, "sp": False,
 CONFIGS = {"micro": (get_config("micro"), tget("micro")),
            "llama3.2-tiny": (llama3_2_3b.tiny(), tllama.tiny()),
            "rwkv6-tiny": (rwkv6_7b.tiny(), trwkv.tiny()),
-           "jamba-tiny": (jamba_v0_1_52b.tiny(), tjamba.tiny())}
-DENSE = ["llama3.2-tiny", "micro"]
+           "jamba-tiny": (jamba_v0_1_52b.tiny(), tjamba.tiny()),
+           "mixtral-tiny": (mixtral_8x22b.tiny(), tmixtral.tiny()),
+           "llava-tiny": (llava_next_34b.tiny(), tllava.tiny())}
+UNIFORM = ["llama3.2-tiny", "llava-tiny", "micro", "mixtral-tiny"]
 STATEFUL = ["jamba-tiny", "rwkv6-tiny"]        # decode_step's families
-
-
-class _SameRouting:
-    """Holds jamba's MoE to the reference's expert picks.
-
-    The two frameworks round the residual stream at other places, so a
-    one-ulp difference meets a near-tie of the top-2 pick on a few tokens
-    per prompt (seen: a reference gap of 2.4e-4 against a logit
-    difference of 2.9e-3, ROADMAP.md Queue 3), and one other expert moves
-    that row's logits far past TOL.  So the reference runs each call first,
-    with its layers unrolled so its picks are concrete, and records them;
-    the port's router then returns the reference's expert ids in the same
-    call order, weighted by its own probabilities.  Each token where the
-    port would have picked otherwise must be a near-tie of the reference
-    (its k-th vs (k+1)-th gap below 4x the frameworks' probability
-    difference); tests/test_torch_ssm.py holds the router's own picks."""
-
-    def __init__(self, monkeypatch):
-        self.calls, self.flips = [], 0
-        j_router, t_router = jl.moe_router, tl.moe_router
-
-        def record(x2d, w, k):
-            p, e = j_router(x2d, w, k)
-            probs = jax.nn.softmax((x2d @ w).astype(jnp.float32), axis=-1)
-            self.calls.append((np.array(probs), np.array(e)))
-            return p, e
-
-        def replay(x2d, w, k):
-            probs_j, ids_j = self.calls.pop(0)
-            _, own = t_router(x2d, w, k)
-            probs = torch.softmax((x2d @ w).float(), dim=-1)
-            flip = (np.sort(own.numpy(), -1) != np.sort(ids_j, -1)).any(-1)
-            if flip.any():
-                srt = -np.sort(-probs_j[flip], axis=-1)
-                gap = srt[:, k - 1] - srt[:, k]
-                diff = np.abs(probs.numpy()[flip] - probs_j[flip]).max(-1)
-                assert (gap < 4 * diff).all(), (gap, diff)
-                self.flips += int(flip.sum())
-            ids = torch.from_numpy(ids_j).long()
-            top_p = probs.gather(1, ids)
-            return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), ids
-
-        monkeypatch.setattr(jl, "moe_router", record)
-        monkeypatch.setattr(tl, "moe_router", replay)
 
 
 ENV_UNROLLED = ShardingEnv(None, opts={"remat": False, "sp": False,
@@ -89,12 +52,32 @@ ENV_UNROLLED = ShardingEnv(None, opts={"remat": False, "sp": False,
 
 
 def _env(name, monkeypatch):
-    """The reference's env for ``name``; for jamba, with its layers
-    unrolled and the port held to its MoE picks (``_SameRouting``)."""
-    if "jamba" not in name:
-        return ENV
-    _SameRouting(monkeypatch)
-    return ENV_UNROLLED
+    """The reference's env for ``name``; for the MoE configs (jamba,
+    mixtral), with its layers unrolled and the port held to its picks
+    (``torch_routing.SameRouting``)."""
+    return _routed(name, monkeypatch)[0]
+
+
+def _routed(name, monkeypatch):
+    """``_env``'s env and its ``SameRouting`` (None without MoE)."""
+    if not CONFIGS[name][0].n_experts:
+        return ENV, None
+    return ENV_UNROLLED, SameRouting(monkeypatch)
+
+
+def _batch(name, toks, n_patches=0):
+    """The same batch for each framework: tokens, and for vlm a patch
+    stream (B, n_patches, d_model) of bf16 normals x 0.02 drawn with
+    numpy; empty, as the engine serves text, unless asked."""
+    cj = CONFIGS[name][0]
+    bj, bt = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cj.family == "vlm":
+        pa = np.random.RandomState(n_patches).randn(
+            toks.shape[0], n_patches, cj.d_model).astype(np.float32) * 0.02
+        bj["patches"] = jnp.asarray(pa, jnp.bfloat16)
+        bt["patches"] = torch.from_numpy(_np(bj["patches"])).to(
+            torch.bfloat16)
+    return bj, bt
 
 
 def _carry(name, seed):
@@ -157,10 +140,9 @@ def test_prefill_matches_jax(name, S, monkeypatch):
     cj, ct, pj, pt = _carry(name, 1)
     env = _env(name, monkeypatch)
     toks = np.random.RandomState(S).randint(1, cj.vocab, size=(2, S))
-    last_j, cache_j = jlm.prefill(pj, {"tokens": jnp.asarray(toks)}, cj,
-                                  env, max_len=96)
-    last_t, cache_t = tlm.prefill(pt, {"tokens": torch.from_numpy(toks)},
-                                  ct, max_len=96)
+    bj, bt = _batch(name, toks)
+    last_j, cache_j = jlm.prefill(pj, bj, cj, env, max_len=96)
+    last_t, cache_t = tlm.prefill(pt, bt, ct, max_len=96)
     assert last_t.dtype == torch.float32 and last_t.shape == last_j.shape
     assert _err(last_t, last_j) < TOL
     assert sorted(cache_t) == sorted(cache_j)
@@ -218,11 +200,12 @@ def test_prefill_decode_matches_full_forward(name):
     assert float((logits[:, 0] - full[:, -1]).abs().max()) < 2e-2
 
 
-@pytest.mark.parametrize("name", DENSE)
-def test_decode_step_paged_matches_jax(name):
+@pytest.mark.parametrize("name", UNIFORM)
+def test_decode_step_paged_matches_jax(name, monkeypatch):
     """Three decode steps over random pool contents, with one idle row on
     the drop sentinel: logits and the updated pools agree."""
     cj, ct, pj, pt = _carry(name, 2)
+    env = _env(name, monkeypatch)
     rng = np.random.RandomState(3)
     L, K, dh, blk, NB = cj.n_layers, cj.n_kv_heads, cj.head_dim, 4, 10
     pools = [jnp.asarray(rng.randn(L, NB, blk, K, dh) * 0.5, jnp.bfloat16)
@@ -238,7 +221,7 @@ def test_decode_step_paged_matches_jax(name):
         aoff = (pos % blk).astype(np.int32)
         lj, kj, vj = jlm.decode_step_paged(
             pj, jnp.asarray(toks), kj, vj, jnp.asarray(tables),
-            jnp.asarray(pos), jnp.asarray(ablk), jnp.asarray(aoff), cj, ENV)
+            jnp.asarray(pos), jnp.asarray(ablk), jnp.asarray(aoff), cj, env)
         T = torch.from_numpy
         lt, kt, vt = tlm.decode_step_paged(
             pt, T(toks).long(), kt, vt, T(tables), T(pos), T(ablk),
@@ -250,6 +233,7 @@ def test_decode_step_paged_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", ["jamba-tiny", "llama3.2-tiny",
+                                  "llava-tiny", "mixtral-tiny",
                                   "rwkv6-tiny"])
 def test_init_params_shapes_match_the_reference_tree(name):
     cj, ct, pj, _ = _carry(name, 0)
@@ -262,22 +246,25 @@ def test_init_params_shapes_match_the_reference_tree(name):
     assert torch.equal(pt["embed"], again["embed"])     # seeded
 
 
-@pytest.mark.parametrize("name", DENSE)
-def test_dense_decode_step_matches_jax(name):
-    """The contiguous-cache dense ``decode_step`` (the gather engine's):
-    from the reference's prefill cache, carried bit-exactly, three steps at
-    per-row positions, the last row at position 0 as the engine's idle rows
-    are.  Logits agree within TOL.  The caches are bit-identical in bf16
+@pytest.mark.parametrize("name", UNIFORM)
+def test_dense_decode_step_matches_jax(name, monkeypatch):
+    """The uniform families' contiguous-cache ``decode_step`` (the gather
+    engine's): from the reference's prefill cache, carried bit-exactly,
+    three steps at per-row positions, the last row at position 0 as the
+    engine's idle rows are.  Logits agree within TOL.  The caches are bit-identical in bf16
     but for what the steps wrote past the first layer: there the residual
     stream has been through one layer of each framework's rounding, and
     the written K/V may sit one bf16 step apart (seen: 2^-9, 2^-10), held
     to TOL."""
     cj, ct, pj, pt = _carry(name, 2)
+    env, routing = _routed(name, monkeypatch)
     rng = np.random.RandomState(7)
     B, S, max_len = 3, 12, 24
     toks = rng.randint(1, cj.vocab, size=(B, S))
-    _, cache_j = jlm.prefill(pj, {"tokens": jnp.asarray(toks)}, cj, ENV,
+    _, cache_j = jlm.prefill(pj, _batch(name, toks)[0], cj, env,
                              max_len=max_len)
+    if routing:                    # the port carries this cache: no prefill
+        routing.calls.clear()
     cache_t = {k: torch.from_numpy(np.array(a).view(np.int16)).view(
         torch.bfloat16) for k, a in cache_j.items()}
     pos = np.asarray([S, S - 3, 0], np.int32)
@@ -285,7 +272,7 @@ def test_dense_decode_step_matches_jax(name):
     for step in range(3):
         tok = rng.randint(1, cj.vocab, size=(B, 1)).astype(np.int32)
         lj, cache_j = jlm.decode_step(pj, jnp.asarray(tok), cache_j,
-                                      jnp.asarray(pos), cj, ENV)
+                                      jnp.asarray(pos), cj, env)
         lt, cache_t = tlm.decode_step(pt, torch.from_numpy(tok).long(),
                                       cache_t, torch.from_numpy(pos), ct)
         assert lt.dtype == torch.float32 and lt.shape == lj.shape
@@ -310,3 +297,46 @@ def test_decode_step_refuses_a_position_past_the_cache():
     tlm.decode_step(pt, tok, cache, torch.tensor([15, 3]), ct)
     with pytest.raises(RuntimeError, match="max_len"):
         tlm.decode_step(pt, tok, cache, torch.tensor([16, 3]), ct)
+
+
+def test_vlm_patch_stream_matches_jax():
+    """llava-tiny with 8 patch embeddings before 12 tokens: the port's
+    ``forward_logits`` and ``prefill`` (logits and K/V over all 20
+    positions) agree with the reference's; then the port alone, as
+    tests/test_models_smoke.py holds the reference: prefill(S-1) +
+    ``decode_step`` at position P+S-1 equals ``forward_logits``."""
+    cj, ct, pj, pt = _carry("llava-tiny", 3)
+    B, S, P = 2, 12, 8
+    toks = np.random.RandomState(8).randint(0, cj.vocab, size=(B, S))
+    bj, bt = _batch("llava-tiny", toks, n_patches=P)
+    full_j = jlm.forward_logits(pj, bj, cj, ENV)
+    full = tlm.forward_logits(pt, bt, ct)
+    assert full.shape == (B, P + S, ct.vocab) == full_j.shape
+    assert _err(full, full_j) < TOL
+    last_j, cache_j = jlm.prefill(pj, bj, cj, ENV, max_len=P + S + 2)
+    last_t, cache_t = tlm.prefill(pt, bt, ct, max_len=P + S + 2)
+    assert _err(last_t, last_j) < TOL
+    for key in ("k", "v"):
+        assert tuple(cache_t[key].shape) == cache_j[key].shape
+        assert _close(cache_t[key], cache_j[key]), key
+        assert cache_t[key][:, :, :P + S].any(-1).all()   # every position
+
+    short = {"tokens": bt["tokens"][:, :S - 1], "patches": bt["patches"]}
+    last, cache = tlm.prefill(pt, short, ct, max_len=P + S + 2)
+    assert float((last[:, 0] - full[:, -2]).abs().max()) < 1e-2
+    logits, _ = tlm.decode_step(pt, bt["tokens"][:, S - 1:], cache,
+                                P + S - 1, ct)
+    assert float((logits[:, 0] - full[:, -1]).abs().max()) < 2e-2
+
+
+def test_vlm_batch_without_patches_raises():
+    """A vlm batch must carry its patch stream, as in the reference (a
+    ``KeyError`` there too); it is not read as an empty one."""
+    cj, ct, pj, pt = _carry("llava-tiny", 0)
+    toks = np.ones((1, 4), np.int64)
+    with pytest.raises(KeyError, match="patches"):
+        jlm.forward_logits(pj, {"tokens": jnp.asarray(toks)}, cj, ENV)
+    for call in (lambda b: tlm.forward_logits(pt, b, ct),
+                 lambda b: tlm.prefill(pt, b, ct, max_len=8)):
+        with pytest.raises(KeyError, match="patches"):
+            call({"tokens": torch.from_numpy(toks)})

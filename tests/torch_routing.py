@@ -1,0 +1,111 @@
+"""Holds the port to the reference's discrete picks where bf16 rounding
+can flip them: the MoE router's top-k (``SameRouting``) and a MoE
+engine's greedy next token (``SameArgmax``).
+
+SameRouting.
+
+The two frameworks round the residual stream at other places, so a
+one-ulp difference meets a near-tie of the top-k pick on a few tokens
+per prompt (seen: a reference gap of 2.4e-4 against a logit difference
+of 2.9e-3, ROADMAP.md Queue 3), and one other expert moves that row's
+logits far past TOL.  So the reference runs each call first, with its
+picks concrete (its layers unrolled, or its engine under
+``jax.disable_jit()``), and records them; the port's router then returns
+the reference's expert ids in the same call order, weighted by its own
+probabilities.  Each token where the port would have picked otherwise
+must be a near-tie of the reference (its k-th vs (k+1)-th gap below 4x
+the frameworks' probability difference); tests/test_torch_ssm.py holds
+the router's own picks."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.models import layers as jl
+from repro_torch.models import layers as tl
+from repro_torch.models import lm as tlm
+
+
+class SameRouting:
+    def __init__(self, monkeypatch):
+        self.calls, self.flips = [], 0
+        j_router, t_router = jl.moe_router, tl.moe_router
+
+        def record(x2d, w, k):
+            p, e = j_router(x2d, w, k)
+            probs = jax.nn.softmax((x2d @ w).astype(jnp.float32), axis=-1)
+            self.calls.append((np.array(probs), np.array(e)))
+            return p, e
+
+        def replay(x2d, w, k):
+            probs_j, ids_j = self.calls.pop(0)
+            _, own = t_router(x2d, w, k)
+            probs = torch.softmax((x2d @ w).float(), dim=-1)
+            assert probs.shape == probs_j.shape, "router calls out of step"
+            flip = (np.sort(own.numpy(), -1) != np.sort(ids_j, -1)).any(-1)
+            if flip.any():
+                srt = -np.sort(-probs_j[flip], axis=-1)
+                gap = srt[:, k - 1] - srt[:, k]
+                diff = np.abs(probs.numpy()[flip] - probs_j[flip]).max(-1)
+                assert (gap < 4 * diff).all(), (gap, diff)
+                self.flips += int(flip.sum())
+            ids = torch.from_numpy(ids_j).long()
+            top_p = probs.gather(1, ids)
+            return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), ids
+
+        monkeypatch.setattr(jl, "moe_router", record)
+        monkeypatch.setattr(tl, "moe_router", replay)
+
+
+class SameArgmax:
+    """Holds the port engine's greedy pick to the reference engine's where
+    their logits nearly tie; for the MoE engines only, where the replayed
+    router picks still leave the two frameworks' logits a few ulps apart.
+    The reference engine's jitted decode functions record each step's
+    logits; the port's ``lm.decode_step`` / ``lm.decode_step_paged`` then
+    take them in call order.  Every row's logits must agree within the lm
+    tests' limit (``tol`` relative to the row's largest magnitude where
+    that passes 1), parted pick or not.  A row whose argmax differs must
+    also be a near-tie of the reference (its top-2 logit gap below the
+    row's largest logit difference); at most ``max_flips`` rows in all
+    may part, and only those rows' logits become the reference's, so the
+    next token and the rest of the script stay comparable."""
+
+    def __init__(self, monkeypatch, ref_engine, tol=2e-2, max_flips=1):
+        self.logits, self.flips = [], 0
+        self.tol, self.max_flips = tol, max_flips
+        for attr in ("_jit_decode", "_jit_paged_decode"):
+            monkeypatch.setattr(ref_engine, attr,
+                                self._record(getattr(ref_engine, attr)))
+        for name in ("decode_step", "decode_step_paged"):
+            monkeypatch.setattr(tlm, name, self._hold(getattr(tlm, name)))
+
+    def _record(self, fn):
+        def call(*args):
+            out = fn(*args)
+            self.logits.append(np.array(out[0][:, 0].astype(jnp.float32)))
+            return out
+        return call
+
+    def _hold(self, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            ref = self.logits.pop(0)
+            own = out[0][:, 0].float().numpy()
+            assert own.shape == ref.shape, "decode calls out of step"
+            diff = np.abs(own - ref).max(-1)
+            top = np.maximum(1.0, np.abs(ref).max(-1))
+            assert (diff < self.tol * top).all(), (diff, top)
+            part = own.argmax(-1) != ref.argmax(-1)
+            if not part.any():
+                return out
+            top2 = -np.sort(-ref[part], axis=-1)[:, :2]
+            gap = top2[:, 0] - top2[:, 1]
+            assert (gap < diff[part]).all(), (gap, diff[part])
+            self.flips += int(part.sum())
+            assert self.flips <= self.max_flips, self.flips
+            logits = out[0].clone()
+            logits[torch.from_numpy(part), 0] = torch.from_numpy(
+                ref[part]).to(logits.dtype)
+            return (logits, *out[1:])
+        return call
