@@ -35,6 +35,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    states, 1e-3 relative; the rounding mode's outputs equal past an f32
    slack at the scale of the sum h.C but on at most 1 % of elements, each
    at most one bf16 step of h.C off: ``mamba_scan.ops.rounding_errs``).
+   Then phases 9-10's shapes, from ``gen_more`` after the long ones: flash
+   at deepseek-v2's MLA prefill (B=2, S=1024, H=K=128, query-key width
+   192 over value width 128, causal), seamless's encoder (B=4, S=1024,
+   H=K=16, D=64, non-causal) and cross-attention (256 queries over 1024
+   frames, non-causal); paged append + decode at G = 1, dh = 64 over
+   seamless's self cache (one block of 288 a row, lens 257) and decode
+   over its cross cache (lens 1024); all also within ``TOL_ROW_STEPS``.
    Each kernel is timed with CUDA events beside its plain version, its
    bound and, for flash, ``scaled_dot_product_attention`` (a yardstick
    the port never calls); flash and paged decode also at the further
@@ -114,6 +121,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    delta, exact launches, ids in range, the audit clean.
    Both phases run before a failed check ends the script; each counts
    its launches under its own path.
+9. MLA: deepseek-v2-236b at full width (d_model 5120, 128 heads, q_lora
+   1536, kv_lora 512, qk 128 + 64, v 128, 160 experts top-6 and 2 shared,
+   vocab 102400), depth cut from 60 to 4 layers (~31.6 GiB): B=2 prompts
+   of 1024 tokens through ``lm.prefill``, 16 greedy ``lm.decode_step``s
+   over the latent cache (exactly 4 flash_prefill launches and no other:
+   the decode attends over the latent with absorbed-matrix products, and
+   the latent is written by an indexed copy), held to
+   ``lm.forward_logits`` on the 1040 tokens (``TOL_DECODE["mla"]``, the
+   forward replaying the run's MoE picks) and the first layer's ckv and
+   krope to ``lm.prefill`` on them (``TOL_STATE["mla"]``); a zero latent
+   cache, a lost latent write and a position off by one must each fail
+   one of the two, the first two the logits.
+10. Enc-dec: seamless-m4t-large-v2 at full width and depth (24 + 24
+   layers, d_model 1024, 16 heads of 64, vocab 256206): B=4, 1024 seeded
+   frame embeddings (x 0.02, the reference's front-end stub) and a
+   256-token target prefix through ``lm.prefill``, 32 greedy
+   ``lm.decode_step``s (exactly 72 flash_prefill, 768 paged_append and
+   1,536 paged_decode launches), held to the forward on the 288 target
+   tokens and the first decoder layer's self and cross K/V to the
+   prefill on them (``TOL_DECODE`` / ``TOL_STATE["encdec"]``); a position
+   off by one must fail one of the two, and a zero self cache, a zeroed
+   cross cache, a cross cache made by a causal encoder and the cross
+   query alone roped at the position before must each fail the logits
+   (the state check compares the very caches the first three replace,
+   and no cache shows the fourth).
+   Phases 5-6 and 9-10 run through one ``serve_path``, with phases 5-6's
+   forward on the prompt and prefill-vs-forward check.  Both phases run
+   before a failed check ends the script; each counts its launches under
+   its own path.
 
 The second-to-last line is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Nothing falls back to the CPU: without
@@ -121,6 +157,7 @@ CUDA the script exits non-zero before any result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -354,6 +391,71 @@ def flash_long_shapes(torch, gen, rec):
             f"({by})")
 
 
+def flash_width_shapes(torch, gen, rec):
+    """Flash prefill at phases 9-10's shapes, drawn from ``gen`` after the
+    long shapes' draws: deepseek-v2's MLA prefill (B=2, S=1024, H=K=128,
+    query-key width 192 over value width 128, causal), seamless's encoder
+    (B=4, S=1024, H=K=16, D=64, non-causal) and its cross-attention (256
+    target queries over 1024 frames, non-causal).  Checked (``check_long``:
+    TOL_BF16 and a limit scaled to each row), timed beside SDPA (which
+    takes a value width apart; "none" where no backend takes the shape)
+    and the bound; added to ``rec``'s ``more_shapes`` and ``max_abs_err``."""
+    from repro_torch.kernels.flash_attention import ops as F
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
+                                dtype=torch.float32).to(torch.bfloat16)
+    for label, B, Sq, Sk, H, K, D, Dv, causal in [
+            ("deepseek-v2 MLA prefill", 2, 1024, 1024, 128, 128, 192, 128,
+             True),
+            ("seamless encoder", 4, 1024, 1024, 16, 16, 64, 64, False),
+            ("seamless cross-attention", 4, 256, 1024, 16, 16, 64, 64,
+             False)]:
+        q, k, v = mk(B, Sq, H, D), mk(B, Sk, K, D), mk(B, Sk, K, Dv)
+        run = lambda: F.flash_prefill(q, k, v, causal=causal)  # noqa
+        out = run()
+        torch.cuda.synchronize()
+        ref = F.flash_prefill_plain(q, k, v, causal=causal)
+        errs = check_long(f"flash {label} B={B} Sq={Sq} Sk={Sk} H={H} K={K} "
+                          f"D={D} Dv={Dv} causal={causal}", out, ref)
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs["max_abs_err"])
+        del ref, out
+        ms = timed(torch, run)
+        dev = device_ms(torch, run, "flash_prefill_kernel")
+        plain_ms = timed(torch, lambda: F.flash_prefill_plain(
+            q, k, v, causal=causal), iters=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            lib_ms = timed(torch, lambda: sdpa(qt, kt, vt, is_causal=causal),
+                           iters=5)
+        except RuntimeError as e:          # no backend takes the shape
+            log(f"  sdpa at {label}: {str(e).splitlines()[0][:120]}")
+            lib_ms = None
+        pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+        nbytes = 2 * (B * Sq * H * (D + Dv) + B * Sk * K * (D + Dv))
+        bms, by = bound(nbytes, 2 * (D + Dv) * pairs)
+        shape = (f"{label}: B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} Dv={Dv} "
+                 + ("causal" if causal else "non-causal"))
+        rec["more_shapes"].append({
+            "shape": shape, "ms": ms, "device_ms": dev,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, **errs})
+        sdpa_ms = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"  flash {shape} time {ms:.4f} ms (device {dev} ms)  plain "
+            f"{plain_ms:.4f} ms  sdpa {sdpa_ms}  bound {bms:.4f} ms ({by})")
+
+
+def paged_g1_shapes(torch, gen, recs):
+    """paged_append + paged_decode at phase 10's shapes (G = 1, dh = 64:
+    ``PAGED_SEAMLESS``), drawn from ``gen`` after the flash width shapes';
+    added to the two kernels' records ``recs``."""
+    errs = {"paged_decode": [], "paged_append": []}
+    more = paged_more_shapes(torch, gen, errs, PAGED_SEAMLESS)
+    for rec in recs:
+        rec["more_shapes"] += more[rec["name"]]
+        rec["max_abs_err"] = max([rec["max_abs_err"], *errs[rec["name"]]])
+
+
 def paged_phase(torch, gen, gen_more):
     from repro_torch.kernels.paged_attention import ops as P
 
@@ -445,7 +547,26 @@ def paged_phase(torch, gen, gen_more):
     return [recs["paged_decode"], recs["paged_append"]]
 
 
-def paged_more_shapes(torch, gen, errs):
+PAGED_MORE = [   # label, B, H, K, dh, block, nb, lens, window, appends, long
+    ("served", 4, 24, 8, 128, 16, 128, [1056, 1, 1, 1], 0, False, False),
+    ("jamba contiguous", 2, 32, 8, 128, 1058, 1, [1056, 1025], 0, False,
+     False),
+    ("gather llama3.2-3b contiguous", 4, 24, 8, 128, 2048, 1,
+     [2048, 1056, 1, 300], 0, False, False),
+    ("served mixtral-8x22b", 4, 48, 8, 128, 16, 512, [4640, 1, 1, 1], 4096,
+     True, True),
+    ("llava-next-34b contiguous", 1, 56, 8, 128, 2576, 1, [2576], 0, False,
+     True)]
+# phase 10's shapes: seamless's self cache (one block of 288 a row, the
+# first decode step's append at 256) and its cross cache, G = 1
+PAGED_SEAMLESS = [
+    ("seamless self cache", 4, 16, 16, 64, 288, 1, [257] * 4, 0, True,
+     True),
+    ("seamless cross cache", 4, 16, 16, 64, 1024, 1, [1024] * 4, 0, False,
+     True)]
+
+
+def paged_more_shapes(torch, gen, errs, cases=PAGED_MORE):
     """paged_decode at the served path's real shape (B=4: one live row of
     1056 tokens, three idle rows of len 1 on table rows of zeros, nb=128),
     at jamba's contiguous cache (B=2, one block of 1058 tokens a row,
@@ -455,25 +576,18 @@ def paged_more_shapes(torch, gen, errs):
     so nb=512, window 4096 biting on one live row of 4640 tokens, three
     idle rows; paged_append first, the idle rows on the drop sentinel)
     and at llava-next-34b's contiguous cache (B=1, G=7, one block of 2576
-    tokens): checked, timed, each beside its bound; the two later shapes
+    tokens): checked, timed, each beside its bound and, over a contiguous
+    cache, one ``scaled_dot_product_attention`` call
+    (``contiguous_sdpa``); the two later shapes
     (``long``) also against ``TOL_ROW_STEPS``, as ``check_long`` does.
-    Returns the records of both kernels."""
+    ``cases`` (``PAGED_MORE`` unless given) lists them.  Returns the
+    records of both kernels."""
     from repro_torch.kernels.paged_attention import ops as P
 
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
                                 dtype=torch.float32).to(torch.bfloat16)
     out_recs = {"paged_decode": [], "paged_append": []}
-    for label, B, H, K, dh, block, nb, lens, window, appends, long in [
-            ("served", 4, 24, 8, 128, 16, 128, [1056, 1, 1, 1], 0, False,
-             False),
-            ("jamba contiguous", 2, 32, 8, 128, 1058, 1, [1056, 1025], 0,
-             False, False),
-            ("gather llama3.2-3b contiguous", 4, 24, 8, 128, 2048, 1,
-             [2048, 1056, 1, 300], 0, False, False),
-            ("served mixtral-8x22b", 4, 48, 8, 128, 16, 512,
-             [4640, 1, 1, 1], 4096, True, True),
-            ("llava-next-34b contiguous", 1, 56, 8, 128, 2576, 1, [2576],
-             0, False, True)]:
+    for label, B, H, K, dh, block, nb, lens, window, appends, long in cases:
         nblocks = B * nb + 1
         q, kp, vp = mk(B, H, dh), mk(nblocks, block, K, dh), \
             mk(nblocks, block, K, dh)
@@ -500,6 +614,12 @@ def paged_more_shapes(torch, gen, errs):
         dev = device_ms(torch, run, "paged_decode_kernel")
         plain_ms = timed(torch, lambda: P.paged_decode_plain(
             q, kp, vp, tables, lens_t, window=window), iters=5, warmup=1)
+        lib = contiguous_sdpa(torch, q, kp, vp, lens, window) \
+            if nb == 1 else None
+        lib_ms = None
+        if lib:
+            check(f"sdpa yardstick at {label}", max_err(lib(), ref))
+            lib_ms = timed(torch, lib)
         # the keys each row reads: the window clips a long row
         n_tok = sum(min(n, window) if window else n for n in lens)
         bms, by = bound(2 * B * H * dh * 2 + B * nb * 4 + B * 4
@@ -512,12 +632,36 @@ def paged_more_shapes(torch, gen, errs):
                      f"nb={nb} lens={lens}"
                      + (f" window={window}" if window else ""),
             "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "span": span,
-            "splits": splits, **(got if long else {})})
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "span": span, "splits": splits, **(got if long else {})})
+        sdpa_ms = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"  paged decode {label} time {ms:.4f} ms (device {dev} ms)  "
-            f"plain {plain_ms:.4f} ms  bound {bms:.5f} ms ({by}); span "
-            f"{span}, {splits} splits")
+            f"plain {plain_ms:.4f} ms  sdpa {sdpa_ms}  bound {bms:.5f} ms "
+            f"({by}); span {span}, {splits} splits")
     return out_recs
+
+
+def contiguous_sdpa(torch, q, kp, vp, lens, window):
+    """One ``scaled_dot_product_attention`` call computing what
+    ``paged_decode`` computes over a contiguous cache (one block a row,
+    table ``arange(B)``): row b's query over block b's first ``lens[b]``
+    keys, sliced where every row has the same length, else masked.  A
+    yardstick the port never calls; None with a window."""
+    if window:
+        return None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, K = q.shape[0], q.shape[1], kp.shape[2]
+    qt = q[:, :, None]                                  # (B, H, 1, dh)
+    if len(set(lens)) == 1:
+        kt, vt = (x[:B, :lens[0]].transpose(1, 2) for x in (kp, vp))
+        mask = None
+    else:
+        kt, vt = (x[:B].transpose(1, 2) for x in (kp, vp))
+        mask = (torch.arange(kp.shape[1], device=q.device)
+                < torch.tensor(lens, device=q.device)[:, None])[:, None,
+                                                                 None]
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                        enable_gqa=H != K)[:, :, 0]
 
 
 def append_shape(torch, P, mk, errs, out_recs, label, tables, lens, kp, vp,
@@ -728,71 +872,6 @@ def mamba_phase(torch, gen):
     return rec
 
 
-class SameRouting:
-    """Holds one run of jamba's MoE to the expert picks another run made.
-
-    Two runs of the same tokens (the card and the CPU, or prefill + decode
-    and the full forward) round the residual stream differently, and on a
-    near-tie of the top-2 pick one other expert moves that row's logits
-    far past any rounding tolerance.  ``record`` stores each router call's
-    probabilities and picks; ``replay`` makes the router return recorded
-    picks in call order, weighted by its own probabilities.  Each token
-    where it would have picked otherwise is counted and must be a near-tie
-    of the recording (its k-th vs (k+1)-th gap below 4x the two runs'
-    probability difference)."""
-
-    def __init__(self, torch, layers):
-        self.torch, self.L = torch, layers
-        self.router = layers.moe_router
-        self.calls, self.flips, self.gaps = [], 0, []
-
-    def record(self):
-        def rec(x2d, w, k):
-            p, e = self.router(x2d, w, k)
-            self.calls.append((self.torch.softmax((x2d @ w).float(), -1), e))
-            return p, e
-        self.L.moe_router = rec
-
-    def replay(self, calls):
-        queue = list(calls)
-
-        def rep(x2d, w, k):
-            probs_r, ids_r = (t.to(x2d.device) for t in queue.pop(0))
-            _, own = self.router(x2d, w, k)
-            probs = self.torch.softmax((x2d @ w).float(), -1)
-            flip = (own.sort(-1).values != ids_r.sort(-1).values).any(-1)
-            if bool(flip.any()):
-                srt = probs_r[flip].sort(-1, descending=True).values
-                gap = srt[:, k - 1] - srt[:, k]
-                diff = (probs[flip] - probs_r[flip]).abs().amax(-1)
-                if not bool((gap < 4 * diff).all()):
-                    raise AssertionError(f"router pick differs away from a "
-                                         f"near-tie: gap {gap.tolist()} vs "
-                                         f"difference {diff.tolist()}")
-                self.flips += int(flip.sum())
-                self.gaps += gap.tolist()
-            top_p = probs.gather(1, ids_r)
-            return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), ids_r
-        self.L.moe_router = rep
-
-    def by_position(self, B, S, n_dec):
-        """The picks recorded over a prefill of S tokens then n_dec decode
-        steps, per MoE layer as (probs (B, S + n_dec, E), ids (B, S +
-        n_dec, k)) in position order."""
-        n = len(self.calls) // (1 + n_dec)
-        out = []
-        for layer in range(n):
-            steps = [self.calls[layer]] + [self.calls[n * (1 + j) + layer]
-                                           for j in range(n_dec)]
-            out.append(tuple(
-                self.torch.cat([c[i].reshape(B, -1, c[i].shape[-1])
-                                for c in steps], 1) for i in (0, 1)))
-        return out
-
-    def restore(self):
-        self.L.moe_router = self.router
-
-
 # ---------------------------------------------------------------------------
 # phase 3: the model through the kernels on the card vs plain on the CPU
 # ---------------------------------------------------------------------------
@@ -847,13 +926,13 @@ def ssm_reference_phase(torch, np):
     the same seed weights; jamba's card run is held to the CPU run's MoE
     picks (SameRouting)."""
     from repro_torch.configs import jamba_v0_1_52b, rwkv6_7b
-    from repro_torch.models import layers as L
+    from repro_torch.models.routing_replay import SameRouting
     from repro_torch.models import lm
 
     for cfg in (rwkv6_7b.tiny(), jamba_v0_1_52b.tiny()):
         cpu_params = lm.init_params(cfg, seed=1, device="cpu")
         prompt = np.random.RandomState(1).randint(1, cfg.vocab, size=(2, 40))
-        routing = SameRouting(torch, L) if cfg.attn_period else None
+        routing = SameRouting() if cfg.attn_period else None
         outs = {}
         for dev in ("cpu", "cuda"):
             if routing:
@@ -1257,24 +1336,33 @@ def ssm_paths(torch, np, card):
     layers, B=2: the whole model needs ~102 GB)."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.routing_replay import SameRouting
 
     wrappers = all_wrappers()
     none = dict.fromkeys(wrappers, 0)
     log("phase 5: path A, rwkv6-7b through lm.prefill / lm.decode_step")
     cfg = get_config("rwkv6-7b")
     n = cfg.n_layers
-    a, fails = serve_path(torch, np, card, wrappers, cfg, 4,
+    params = ready(torch, lm, cfg)
+    a, fails = serve_path(torch, np, card, wrappers, cfg, params, 4,
                           {**none, "wkv6": n * 33}, {**none, "wkv6": n})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     log("phase 6: path B, jamba-v0.1-52b (depth 8) through lm.prefill / "
         "lm.decode_step")
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
-    b, fails_b = serve_path(torch, np, card, wrappers, cfg, 2,
+    params = ready(torch, lm, cfg)
+    b, fails_b = serve_path(torch, np, card, wrappers, cfg, params, 2,
                             {**none, "mamba_scan": 7 * 33,
                              "flash_prefill": 1, "paged_append": 32,
                              "paged_decode": 32},
                             {**none, "mamba_scan": 7, "flash_prefill": 1},
-                            routing=SameRouting(torch, L))
+                            routing=SameRouting())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     if fails + fails_b:
         raise AssertionError("; ".join(fails + fails_b))
     return {"path A rwkv6-7b": a, "path B jamba-v0.1-52b depth 8": b}
@@ -1356,10 +1444,29 @@ def profile_window(torch, np, srv, cfg, card: str):
 # the first layer's appended K/V, which the decode computes from the
 # token's embedding alone, to 2e-2 (one bf16 step of its largest
 # magnitude is 3.9e-3).  The limits of the earlier paths are unchanged.
+#
+# Phases 9 (deepseek-v2, MLA, depth 4) and 10 (seamless-m4t, enc-dec, 24 +
+# 24 layers) have limits of their own, keyed by path and set before their
+# first run on the card: MLA's decode attends in f32 over the latent where
+# its prefill and the forward attend in bf16 through flash, as the
+# reference's do, and its depth is 4: mixtral's 5e-2.  The first layer's
+# cache entries, which a decode step computes from the token's embedding
+# alone, as the other paths: 2e-2 (seamless's cross K/V come from the
+# same encoder run on the same frames).  Seamless's decode step was first
+# held to rwkv6-7b's 0.15 (72 sublayers against its 64) and read 1.91e-2.
+# That left a fault confined to the cross-attention decode, which no
+# compared cache can show, free to move the logits by up to 8x the sound
+# reading.  Planted (the cross query roped at pos - 1), such a fault read
+# 3.31e-2 against the sound 1.91e-2 (NVIDIA H100 80GB HBM3, 700 W): the
+# limit sits between the two.
 TOL_FORWARD = 2e-2
-TOL_DECODE = {"ssm": 1.5e-1, "hybrid": 5e-2, "moe": 5e-2, "vlm": 1e-1}
-TOL_STATE = {"ssm": 2e-2, "hybrid": 1e-1, "moe": 2e-2, "vlm": 2e-2}
-MUST_MOVE_LOGITS = ("zero cache", "one lost state write")
+TOL_DECODE = {"ssm": 1.5e-1, "hybrid": 5e-2, "moe": 5e-2, "vlm": 1e-1,
+              "mla": 5e-2, "encdec": 2.5e-2}
+TOL_STATE = {"ssm": 2e-2, "hybrid": 1e-1, "moe": 2e-2, "vlm": 2e-2,
+             "mla": 2e-2, "encdec": 2e-2}
+MUST_MOVE_LOGITS = ("zero cache", "one lost state write", "zero self cache",
+                    "zeroed cross cache", "cross cache from a causal encoder",
+                    "cross query roped at pos - 1")
 
 
 def reset(wrappers):
@@ -1383,7 +1490,7 @@ def state_errs(cache, ref, n):
     out = {}
     for key, a in cache.items():
         b = ref[key]
-        if key in ("k", "v"):
+        if key in ("k", "v", "ckv", "krope"):
             a, b = a[:, :, :n], b[:, :, :n]
         elif key in ("conv", "ssm"):
             a, b = a.flatten(0, 1), b.flatten(0, 1)
@@ -1410,30 +1517,36 @@ def first_layer(errs) -> float:
     return max(e[0] for e in errs.values())
 
 
-def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
-               routing=None):
-    """``cfg`` at full width from seed-0 random bf16 weights made on the
-    card: B prompts of 1024 tokens through ``lm.prefill``, then 32 greedy
-    ``lm.decode_step``s carrying the state cache (counted: ``expect``
-    launches).  Then ``lm.forward_logits`` on the prompt and on the
-    1056-token sequences and ``lm.prefill`` on the sequences (each counted
-    apart: ``expect_fwd``), held to the prefill's logits, the last decode
-    step's logits and the carried states; then the planted faults.
+def path_of(cfg) -> str:
+    """The key of ``cfg``'s limits in ``TOL_DECODE`` / ``TOL_STATE``."""
+    return "mla" if cfg.use_mla else "encdec" if cfg.enc_dec else cfg.family
+
+
+def serve_path(torch, np, card, wrappers, cfg, params, B, expect, expect_fwd,
+               S=1024, n_dec=32, seed=2, frames=None, routing=None):
+    """``cfg`` at full width from ``params`` on the card: B prompts of S
+    tokens (seeded by ``seed``; enc-dec: target tokens after ``frames``)
+    through ``lm.prefill``, then n_dec greedy ``lm.decode_step``s carrying
+    the cache (counted: ``expect`` launches), then two profiled steps.
+    Then ``lm.forward_logits`` on the prompt and on the whole sequence and
+    ``lm.prefill`` on the sequence (each counted apart: ``expect_fwd``;
+    held to the run's MoE picks where ``routing``), held to the prefill's
+    logits, the last decode step's logits (``TOL_DECODE[path_of(cfg)]``)
+    and the first layer of each carried cache entry (``TOL_STATE``); then
+    the ``planted_faults``, each of which must fail one of the two.
     Returns (the path's launch counts, the failed checks)."""
     from repro_torch.models import lm
 
-    S, n_dec = 1024, 32
     fails = []
     hold = holder(cfg, fails)
-
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    log(f"  {cfg.name} ({cfg.n_layers} layers) params ready in "
-        f"{time.perf_counter() - t0:.1f} s; memory_allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    prompt = torch.as_tensor(np.random.RandomState(2).randint(
+    path = path_of(cfg)
+    key = "tgt_tokens" if cfg.enc_dec else "tokens"
+    prompt = torch.as_tensor(np.random.RandomState(seed).randint(
         1, cfg.vocab, size=(B, S)), device="cuda")
+
+    def batch_of(tokens):
+        return {key: tokens, **({} if frames is None else
+                                {"frames": frames})}
 
     if routing:
         routing.record()
@@ -1443,8 +1556,7 @@ def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
     t0 = time.perf_counter()
     # 2 more positions: the profiled steps after the counted run
     max_len = S + n_dec + 2
-    last, cache = lm.prefill(params, {"tokens": prompt}, cfg,
-                             max_len=max_len)
+    last, cache = lm.prefill(params, batch_of(prompt), cfg, max_len=max_len)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     toks, tok, kept = [prompt], last.argmax(-1), []
@@ -1464,7 +1576,8 @@ def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
     if launches != expect:
         raise AssertionError(f"{cfg.name}: launches {launches}, expected "
                              f"{expect}")
-    log(f"  {cfg.name} [{card}]: B={B} x {S} prompt tokens; prefill "
+    src = "" if frames is None else f"{frames.shape[1]} frames + "
+    log(f"  {cfg.name} [{card}]: B={B} x ({src}{S} prompt tokens); prefill "
         f"{t_prefill:.3f} s, then {n_dec} decode steps "
         f"{(wall - t_prefill) / n_dec * 1e3:.2f} ms each; wall "
         f"{wall:.3f} s = {B * n_dec / wall:.2f} decoded tokens per wall "
@@ -1488,7 +1601,7 @@ def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
             routing.replay([(p[:, :n].flatten(0, 1), i[:, :n].flatten(0, 1))
                             for p, i in picks])
         reset(wrappers)
-        out = run(params, {"tokens": seq[:, :n]}, cfg)
+        out = run(params, batch_of(seq[:, :n]), cfg)
         torch.cuda.synchronize()
         if routing:
             routing.restore()
@@ -1504,7 +1617,7 @@ def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
         raise AssertionError(f"{cfg.name}: forward logits {ref.shape}, "
                              f"finite {bool(ref.isfinite().all())}")
     if routing:
-        log(f"  forwards and prefill held to the served MoE picks: "
+        log(f"  forwards and prefill held to the run's MoE picks: "
             f"{routing.flips} near-tie flips over the three (recorded gaps "
             f"{routing.gaps[:8]})")
 
@@ -1516,15 +1629,15 @@ def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
     if not routing:              # one shape: the same kernels on each row
         other = seq.clone()
         other[:, S:] = (other[:, S:] + 1) % cfg.vocab
-        same = rel_err(lm.forward_logits(params, {"tokens": other}, cfg)
+        same = rel_err(lm.forward_logits(params, batch_of(other), cfg)
                        [:, S - 1], ref[:, S - 1])
         log(f"  forward on {S + n_dec} tokens, its last {n_dec} changed, "
             f"at position {S - 1}: {same:.4e} of the largest logit")
     errs = state_errs(cache, ref_cache, S + n_dec)
-    for key, e in errs.items():
+    for name, e in errs.items():
         idx = sorted({i for i in (0, 1, 3, len(e) // 2, len(e) - 1)
                       if i < len(e)})
-        log(f"  carried {key} vs prefill on the sequence, by layer "
+        log(f"  carried {name} vs prefill on the sequence, by layer "
             + ", ".join(f"{i}: {e[i]:.2e}" for i in idx))
 
     # the checks
@@ -1533,45 +1646,86 @@ def serve_path(torch, np, card, wrappers, cfg, B, expect, expect_fwd,
             ("prefill last logits vs forward", last[:, 0],
              fwd["forward_logits on the prompt"][:, -1], TOL_FORWARD),
             ("last decode step logits vs forward", logits[:, 0], ref_last,
-             TOL_DECODE[cfg.family])):
+             TOL_DECODE[path])):
         agree = int((ours.argmax(-1) == theirs.argmax(-1)).sum())
         log(f"  {label}: max_abs_err {max_err(ours, theirs):.4e}, largest "
             f"logit {float(theirs.abs().max()):.3f}, argmax agrees on "
             f"{agree}/{B} rows")
         hold(f"{label} (relative)", rel_err(ours, theirs), tol)
     hold("carried states vs prefill on the sequence, first layer of each "
-         "entry", first_layer(errs), TOL_STATE[cfg.family])
+         "entry", first_layer(errs), TOL_STATE[path])
 
     # planted faults in the last decode step's inputs: each must miss
-    pos = S + n_dec - 1
-    stale, before = kept
-    faults = {"zero cache": (lm.init_cache(cfg, B, max_len, device="cuda"),
-                             pos),
-              "one lost state write": (stale, pos)}
-    if cfg.family == "ssm":
-        faults["shift_tm dropped"] = (dict(_clone(before), shift_tm=(
-            torch.zeros_like(before["shift_tm"]))), pos)
-    else:
-        faults["conv state dropped"] = (dict(_clone(before), conv=(
-            torch.zeros_like(before["conv"]))), pos)
-        faults["position off by one"] = (_clone(before), pos - 1)
-    for name, (bad, p) in faults.items():
-        lg, bad = lm.decode_step(params, seq[:, -1:], bad, p, cfg)
-        got = {"logits": (rel_err(lg[:, 0], ref_last),
-                          TOL_DECODE[cfg.family]),
+    faults = planted_faults(torch, cfg, params, B, max_len, kept,
+                            S + n_dec - 1, frames)
+    for name, (bad, p, swap) in faults.items():
+        with swap:
+            lg, bad = lm.decode_step(params, seq[:, -1:], bad, p, cfg)
+        got = {"logits": (rel_err(lg[:, 0], ref_last), TOL_DECODE[path]),
                "states": (first_layer(state_errs(bad, ref_cache, S + n_dec)),
-                          TOL_STATE[cfg.family])}
+                          TOL_STATE[path])}
         seen = [what for what, (e, tol) in got.items() if e > tol]
         log(f"  fault '{name}': " + ", ".join(
             f"{what} {e:.4e} (limit {tol:g})" for what, (e, tol)
             in got.items()) + f"; caught by {' and '.join(seen) or 'NEITHER'}")
         if not seen or (name in MUST_MOVE_LOGITS and "logits" not in seen):
             fails.append(f"{cfg.name} fault '{name}' caught by {seen}")
-    del fwd, ref, ref_cache, faults, kept, stale, before, bad, lg
-    del params, cache, logits, last
+    del fwd, ref, ref_cache, faults, kept, bad, lg
+    del cache, logits, last
     gc.collect()
     torch.cuda.empty_cache()
     return launches, fails
+
+
+@contextlib.contextmanager
+def swapped(mod, name, wrap):
+    """``mod.name`` replaced by ``wrap(mod.name)`` inside the block."""
+    old = getattr(mod, name)
+    setattr(mod, name, wrap(old))
+    try:
+        yield
+    finally:
+        setattr(mod, name, old)
+
+
+def planted_faults(torch, cfg, params, B, max_len, kept, pos, frames):
+    """Faults planted in the last decode step's inputs, as {name: (cache,
+    position, a context the step runs in)}: from ``kept``, the caches
+    before the last two steps (the older one has lost the last write)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    stale, before = kept
+    none = contextlib.nullcontext()
+    if cfg.enc_dec:
+        return {
+            "zero self cache": (dict(_clone(before), k=torch.zeros_like(
+                before["k"]), v=torch.zeros_like(before["v"])), pos, none),
+            "zeroed cross cache": (dict(_clone(before), cross_k=(
+                torch.zeros_like(before["cross_k"])), cross_v=(
+                torch.zeros_like(before["cross_v"]))), pos, none),
+            "position off by one": (_clone(before), pos - 1, none),
+            "cross cache from a causal encoder": (dict(
+                _clone(before), **causal_cross(torch, cfg, params, frames)),
+                pos, none),
+            # the self-attention sound, the cross query alone off: only
+            # the logits can see it
+            "cross query roped at pos - 1": (_clone(before), pos, swapped(
+                L, "cross_attention_decode",
+                lambda f: lambda x, p, c, kc, vc, at: f(x, p, c, kc, vc,
+                                                        at - 1)))}
+    faults = {"zero cache": (lm.init_cache(cfg, B, max_len, device="cuda"),
+                             pos, none),
+              "one lost state write": (stale, pos, none)}
+    if cfg.family == "ssm":
+        faults["shift_tm dropped"] = (dict(_clone(before), shift_tm=(
+            torch.zeros_like(before["shift_tm"]))), pos, none)
+    elif not cfg.use_mla:
+        faults["conv state dropped"] = (dict(_clone(before), conv=(
+            torch.zeros_like(before["conv"]))), pos, none)
+    if cfg.family != "ssm":
+        faults["position off by one"] = (_clone(before), pos - 1, none)
+    return faults
 
 
 # ---------------------------------------------------------------------------
@@ -1586,7 +1740,7 @@ def moe_vlm_paths(torch, np, card):
     ``Engine(paged=True)``.  Returns the launches by path."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models import layers as L
+    from repro_torch.models.routing_replay import SameRouting
     from repro_torch.models import lm
     from repro_torch.serving.server import AgentRequest
 
@@ -1607,7 +1761,7 @@ def moe_vlm_paths(torch, np, card):
         {**none, "flash_prefill": n, "paged_append": 16 * n,
          "paged_decode": 16 * n},
         {**none, "flash_prefill": n}, paged=True,
-        routing=SameRouting(torch, L))
+        routing=SameRouting())
     fails += f
     del params
     gc.collect()
@@ -1838,6 +1992,79 @@ def held_path(torch, np, card, wrappers, cfg, params, S, expect,
     return launches, fails
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: MLA (deepseek-v2) and the encoder-decoder (seamless-m4t)
+# through lm.prefill / lm.decode_step
+# ---------------------------------------------------------------------------
+def mla_encdec_paths(torch, np, card):
+    """Phase 9: deepseek-v2-236b at full width, depth cut from 60 to 4, B=2
+    prompts of 1024 tokens, 16 decode steps over the latent cache.  Phase
+    10: seamless-m4t-large-v2 at full width and depth, B=4, 1024 frames and
+    a 256-token target prefix, 32 decode steps.  Both run before a failed
+    check ends the script.  Returns the launches by path."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.routing_replay import SameRouting
+    from repro_torch.models import lm
+
+    wrappers = all_wrappers()
+    none = dict.fromkeys(wrappers, 0)
+    by_path, fails = {}, []
+    log("phase 9: deepseek-v2-236b (depth 4, MLA) through lm.prefill / "
+        "lm.decode_step")
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=4)
+    params = ready(torch, lm, cfg)
+    n = cfg.n_layers
+    by_path["deepseek-v2-236b depth 4 MLA"], f = serve_path(
+        torch, np, card, wrappers, cfg, params, 2,
+        {**none, "flash_prefill": n}, {**none, "flash_prefill": n},
+        n_dec=16, seed=9, routing=SameRouting())
+    fails += f
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 10: seamless-m4t-large-v2 (24 + 24 layers) through "
+        "lm.prefill / lm.decode_step")
+    cfg = get_config("seamless-m4t-large-v2")
+    params = ready(torch, lm, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    frames = (torch.randn(4, 1024, cfg.d_model, generator=gen,
+                          device="cuda") * 0.02).to(torch.bfloat16)
+    n_enc, n_dec_layers, steps = cfg.n_enc_layers, cfg.n_dec_layers, 32
+    by_path["seamless-m4t-large-v2 enc-dec"], f = serve_path(
+        torch, np, card, wrappers, cfg, params, 4,
+        {**none, "flash_prefill": n_enc + 2 * n_dec_layers,
+         "paged_append": steps * n_dec_layers,
+         "paged_decode": 2 * steps * n_dec_layers},
+        {**none, "flash_prefill": n_enc + 2 * n_dec_layers},
+        S=256, n_dec=steps, seed=9, frames=frames)
+    fails += f
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return by_path
+
+
+def causal_cross(torch, cfg, params, frames):
+    """A planted fault: the cross caches (cross_k, cross_v) that a causal
+    encoder would give, the encoder's attention run with causal=True."""
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+
+    with swapped(L, "gqa_attention_full", lambda full: lambda *a, causal,
+                 **kw: full(*a, causal=True, **kw)):
+        enc = encdec._run_encoder(params, frames, cfg)
+    kv = [encdec._cross_kv(encdec.lm._layer(params["dec_layers"]["cross"],
+                                            i), enc)
+          for i in range(cfg.n_dec_layers)]
+    return {"cross_k": torch.stack([k for k, _ in kv]),
+            "cross_v": torch.stack([v for _, v in kv])}
+
+
 def window_proof(torch, cfg, params, tok, pools, tables, pos, where, fails):
     """The window at the model's first layer, shown whatever the logits
     show: the last step's layer-0 attention through the kernels (the
@@ -1947,10 +2174,12 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
             elif "entry function" in line:
                 log(f"  ptxas {name}: {line.split(chr(39))[1]}")
+    from repro_torch.kernels.flash_attention import ops as F
     smem = build.function("flash_attention", "flash_prefill_smem_bytes",
-                          [ctypes.c_int])
+                          [ctypes.c_int, ctypes.c_int])
     log("  flash_prefill_kernel dynamic shared memory per CTA: "
-        + ", ".join(f"D={d} {smem(d)} bytes" for d in (16, 64, 128)))
+        + ", ".join(f"D={d} Dv={dv} {smem(d, dv)} bytes"
+                    for d, dv in F.WIDTHS))
     wsmem, wctas = (build.function("wkv6", f"wkv6_{f}", [ctypes.c_int])
                     for f in ("smem_bytes", "ctas_per_sm"))
     log("  wkv6_kernel dynamic shared memory per CTA and CTAs per SM: "
@@ -1977,6 +2206,8 @@ def main() -> int:
                *paged_phase(torch, gen, gen_more),
                wkv6_phase(torch, gen), mamba_phase(torch, gen)]
     flash_long_shapes(torch, gen_more, kernels[0])
+    flash_width_shapes(torch, gen_more, kernels[0])
+    paged_g1_shapes(torch, gen_more, kernels[1:3])
     log("phase 3: reference check on small inputs")
     reference_phase(torch, np)
     ssm_reference_phase(torch, np)
@@ -1988,6 +2219,7 @@ def main() -> int:
     by_path["soak_bench_torch micro"] = soak_phase(torch, card)
     by_path.update(ssm_paths(torch, np, card))
     by_path.update(moe_vlm_paths(torch, np, card))
+    by_path.update(mla_encdec_paths(torch, np, card))
     for rec in kernels:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in
                                    by_path.items() if n[rec["name"]]}

@@ -9,10 +9,14 @@
 // bf16 before the P.V product, as the Pallas body does (p.astype(v.dtype)).
 // Rows that see no key give 0.
 //
-// Layout: q (B, Sq, H, D), k/v (B, Sk, K, D), out (B, Sq, H, D), all bf16 and
-// contiguous, D = 16, 64 or 128.  Query head h reads KV head h / (H / K) in
-// place: GQA is never expanded in memory.  Any S is taken; the ragged edge is
-// masked here.
+// Layout: q (B, Sq, H, D), k (B, Sk, K, D), v (B, Sk, K, DV), out
+// (B, Sq, H, DV), all bf16 and contiguous.  (D, DV) is (16, 16), (64, 64),
+// (128, 128) or (192, 128): the last is deepseek-v2's MLA prefill, whose
+// query-key width (128 + 64 rope) is wider than its value width; the scale
+// stays 1/sqrt(D), as the reference's chunked_attention takes it.  Query
+// head h reads KV head h / (H / K) in place: GQA is never expanded in
+// memory.  Any Sq and Sk are taken (a cross-attention's Sq != Sk); the
+// ragged edge is masked here.
 //
 // What bounds it on an H100: at the main path's prefill (S = 1024, D = 128,
 // 3 query heads per KV head, causal) the function does 2 * 2 * D FLOPs per
@@ -47,6 +51,10 @@
 //   left of the window) are never loaded; only the diagonal, window-edge
 //   and ragged tiles apply the mask.  The grid runs the longest query tiles
 //   (the last rows under a causal mask) first.
+// - At (D, DV) = (192, 128) K has three 64-column swizzle blocks and V two;
+//   a ring stage holds both (80 KiB), so Q (48 KiB) and two stages take
+//   209 KiB of the 227 a CTA may have.  S and O keep D = 128's register
+//   shapes (64 x 128 f32 each per warpgroup): only the Q K^T loop is longer.
 //
 // Left for later: a persistent grid, two consumer warpgroups that take
 // turns between softmax and wgmma (the softmax of one overlapping the
@@ -70,22 +78,31 @@ constexpr int NCONS = NWG * 128;          // consumer threads
 constexpr int NTHREADS = NCONS + 32;      // + one producer warp
 constexpr uint32_t SPIN_LIMIT = 1u << 22; // mbarrier polls before a trap
 
-template <int D>
+// D: the query-key width; DV: the value (and output) width.
+template <int D, int DV>
 struct Cfg {
   static constexpr int RB = D * 2 < 128 ? D * 2 : 128;  // bytes per smem row
-  static constexpr int NCB = D * 2 / RB;                // column blocks
+  static_assert(RB == (DV * 2 < 128 ? DV * 2 : 128),
+                "the Q/K and V tiles share one swizzle");
+  static constexpr int NCB = D * 2 / RB;                // K's column blocks
+  static constexpr int NCBV = DV * 2 / RB;              // V's column blocks
   static constexpr int SWZ = RB / 16 - 1;               // swizzle xor mask
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   static constexpr uint32_t SBO = 8 * RB;               // 8-row group stride
   static constexpr int Q_BYTES = BQ * D * 2;            // one warpgroup's Q
-  static constexpr int T_BYTES = BK * D * 2;            // one K or V tile
-  static constexpr int ON = D < 64 ? D : 64;            // n of a P.V wgmma
-  static constexpr int NO = D / ON;                     // P.V wgmmas a step
+  static constexpr int K_BYTES = BK * D * 2;            // one K tile
+  static constexpr int V_BYTES = BK * DV * 2;           // one V tile
+  static constexpr int ST_BYTES = K_BYTES + V_BYTES;    // one ring stage
+  static constexpr int ON = DV < 64 ? DV : 64;          // n of a P.V wgmma
+  static constexpr int NO = DV / ON;                    // P.V wgmmas a step
   // byte offsets from the 1024-aligned base; every tile 1024-aligned
   static constexpr int q_off = 0;
   static constexpr int kv_off = NWG * Q_BYTES;          // stage s: K, then V
-  static constexpr int bar_off = kv_off + STAGES * 2 * T_BYTES;
+  static constexpr int bar_off = kv_off + STAGES * ST_BYTES;
   static constexpr int bytes = bar_off + 2 * STAGES * 8 + 1024;  // + align
+  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0
+                && V_BYTES % 1024 == 0, "tiles stay 1024-aligned");
+  static_assert(bytes <= 232448, "a CTA takes at most 227 KiB");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -93,9 +110,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // byte offset of a 16-byte chunk in a swizzled tile (CuTe's Swizzle<b,4,3>)
-template <int D>
+template <class C>
 __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
-  return off ^ (((off >> 7) & Cfg<D>::SWZ) << 4);
+  return off ^ (((off >> 7) & C::SWZ) << 4);
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading byte
@@ -255,14 +272,14 @@ __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
                      const __grid_constant__ CUtensorMap tmap_v,
                      const bf16* __restrict__ q, bf16* __restrict__ o,
                      int Sq, int Sk, int H, int K, int causal, int window,
                      float scale_log2) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -297,7 +314,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
       const int cb = c / (C::RB / 16), cc = c % (C::RB / 16);
       const uint32_t off = cb * (BQ * C::RB) + r * C::RB + cc * 16;
       *reinterpret_cast<uint4*>(smem + C::q_off + w * C::Q_BYTES
-                                + swizzle<D>(off)) = val;
+                                + swizzle<C>(off)) = val;
     }
     // make the generic-proxy stores visible to wgmma (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -317,16 +334,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
         if (j >= STAGES) mbar_wait(empty_bar + 8 * s, ((j / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full_bar + 8 * s, 2 * C::T_BYTES);
+        mbar_expect_tx(full_bar + 8 * s, C::ST_BYTES);
         const int k0 = (tile0 + j) * BK;
-        const uint32_t kdst = base + C::kv_off + s * 2 * C::T_BYTES;
+        const uint32_t kdst = base + C::kv_off + s * C::ST_BYTES;
 #pragma unroll
-        for (int cb = 0; cb < C::NCB; ++cb) {
+        for (int cb = 0; cb < C::NCB; ++cb)
           tma_load_4d(kdst + cb * BK * C::RB, &tmap_k, cb * (C::RB / 2), kvh,
                       k0, b, full_bar + 8 * s);
-          tma_load_4d(kdst + C::T_BYTES + cb * BK * C::RB, &tmap_v,
+#pragma unroll
+        for (int cb = 0; cb < C::NCBV; ++cb)
+          tma_load_4d(kdst + C::K_BYTES + cb * BK * C::RB, &tmap_v,
                       cb * (C::RB / 2), kvh, k0, b, full_bar + 8 * s);
-        }
       }
     }
     return;
@@ -350,8 +368,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % STAGES;
     const int k0 = (tile0 + j) * BK;
-    const uint32_t k_addr = base + C::kv_off + s * 2 * C::T_BYTES;
-    const uint32_t v_addr = k_addr + C::T_BYTES;
+    const uint32_t k_addr = base + C::kv_off + s * C::ST_BYTES;
+    const uint32_t v_addr = k_addr + C::K_BYTES;
     mbar_wait(full_bar + 8 * s, (j / STAGES) & 1);
 
     // S = Q K^T, 64 x BK in registers
@@ -427,7 +445,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
 #pragma unroll
       for (int i = 0; i < C::ON / 2; ++i) acc[n][i] *= alpha[(i / 2) % 2];
 
-    // O += P V: V's tile read MN-major, one wgmma per 64 columns of D
+    // O += P V: V's tile read MN-major, one wgmma per 64 columns of DV
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
@@ -455,7 +473,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
     const int qpos = row0 + 8 * r;
     if (qpos >= Sq) continue;
-    bf16* orow = o + (((size_t)b * Sq + qpos) * H + h) * D;
+    bf16* orow = o + (((size_t)b * Sq + qpos) * H + h) * DV;
 #pragma unroll
     for (int n = 0; n < C::NO; ++n)
 #pragma unroll
@@ -494,16 +512,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over one (B, Sk, K, D) tensor as (D, K, Sk, B), innermost first, whose
-// box is one column block of BK keys of one (batch, kv head).
-template <int D>
+// A map over one (B, Sk, K, W) tensor as (W, K, Sk, B), innermost first, whose
+// box is one column block (RB bytes) of BK keys of one (batch, kv head).
+template <class C>
 CUresult encode_kv(CUtensorMap* map, EncodeTiled enc, const void* ptr, int B,
-                   int Sk, int K) {
-  using C = Cfg<D>;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)K, (cuuint64_t)Sk,
+                   int Sk, int K, int W) {
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)K, (cuuint64_t)Sk,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)K * D * 2,
-                                 (cuuint64_t)Sk * K * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 2, (cuuint64_t)K * W * 2,
+                                 (cuuint64_t)Sk * K * W * 2};
   const cuuint32_t box[4] = {C::RB / 2, 1, BK, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw = C::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -519,27 +536,31 @@ CUresult encode_kv(CUtensorMap* map, EncodeTiled enc, const void* ptr, int B,
 constexpr int ERR_NO_ENCODE = -1;
 constexpr int ERR_ENCODE_BASE = -1000;
 
-template <int D>
+template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int K, int causal, int window, float scale,
            cudaStream_t stream) {
+  using C = Cfg<D, DV>;
   EncodeTiled enc = encode_tiled();
   if (!enc) return ERR_NO_ENCODE;
   CUtensorMap tk, tv;
-  CUresult r = encode_kv<D>(&tk, enc, k, B, Sk, K);
-  if (r == CUDA_SUCCESS) r = encode_kv<D>(&tv, enc, v, B, Sk, K);
+  CUresult r = encode_kv<C>(&tk, enc, k, B, Sk, K, D);
+  if (r == CUDA_SUCCESS) r = encode_kv<C>(&tv, enc, v, B, Sk, K, DV);
   if (r != CUDA_SUCCESS) return ERR_ENCODE_BASE - (int)r;
-  const int bytes = Cfg<D>::bytes;
+  const int bytes = C::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_prefill_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Sq + NWG * BQ - 1) / (NWG * BQ));
-  flash_prefill_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
+  flash_prefill_kernel<D, DV><<<grid, NTHREADS, bytes, stream>>>(
       tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(o), Sq, Sk, H,
       K, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
+
+// The (D, DV) pairs built, as one switch key.
+constexpr int widths(int D, int DV) { return D * 1024 + DV; }
 
 }  // namespace
 
@@ -547,31 +568,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // code when the K/V tensor maps could not be made (see ERR_* above).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* o, int B, int Sq, int Sk, int H, int K,
-                             int D, int causal, int window, float scale,
-                             void* stream) {
+                             int D, int DV, int causal, int window,
+                             float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return 0;
   if (Sk == 0)                     // no keys: every row gives 0
-    return (int)cudaMemsetAsync(o, 0, (size_t)B * Sq * H * D * 2, s);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, B, Sq, Sk, H, K, causal, window, scale, s);
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * Sq * H * DV * 2, s);
+  switch (widths(D, DV)) {
+    case widths(16, 16):
+      return launch<16, 16>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
+                            scale, s);
+    case widths(64, 64):
+      return launch<64, 64>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
+                            scale, s);
+    case widths(128, 128):
+      return launch<128, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
+                              scale, s);
+    case widths(192, 128):
+      return launch<192, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
+                              scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory of one CTA at head dim D (0 for another D): what
-// ptxas cannot print for this kernel.
-extern "C" int flash_prefill_smem_bytes(int D) {
-  switch (D) {
-    case 16: return Cfg<16>::bytes;
-    case 64: return Cfg<64>::bytes;
-    case 128: return Cfg<128>::bytes;
+// Dynamic shared memory of one CTA at widths (D, DV) (0 for a pair not
+// built): what ptxas cannot print for this kernel.
+extern "C" int flash_prefill_smem_bytes(int D, int DV) {
+  switch (widths(D, DV)) {
+    case widths(16, 16): return Cfg<16, 16>::bytes;
+    case widths(64, 64): return Cfg<64, 64>::bytes;
+    case widths(128, 128): return Cfg<128, 128>::bytes;
+    case widths(192, 128): return Cfg<192, 128>::bytes;
     default: return 0;
   }
 }

@@ -3,9 +3,12 @@
 ``flash_prefill`` is the port of the Pallas kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_bhsd`` and of
 its wrapper ``ops.py::flash_attention``.  It takes model-layout tensors,
-q (B, Sq, H, D) and k/v (B, Sk, K, D), and returns (B, Sq, H, D).  A CPU
-tensor goes to ``flash_prefill_plain``; a CUDA tensor launches
-``csrc/flash_attention.cu`` (bf16, head_dim 16, 64 or 128: wgmma on the
+q (B, Sq, H, D), k (B, Sk, K, D) and v (B, Sk, K, Dv), and returns
+(B, Sq, H, Dv) with the scale 1/sqrt(D), as the reference's
+``layers.chunked_attention`` takes a value width apart from the query-key
+width (deepseek-v2's MLA prefill: D 192, Dv 128).  A CPU tensor goes to
+``flash_prefill_plain``, at any widths; a CUDA tensor launches
+``csrc/flash_attention.cu`` (bf16, (D, Dv) one of ``WIDTHS``: wgmma on the
 tensor cores, K/V streamed by TMA through a two-stage ring), which reads
 KV head h // (H/K) in place instead of expanding GQA.
 """
@@ -19,9 +22,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128)
+WIDTHS = ((16, 16), (64, 64), (128, 128), (192, 128))   # (D, Dv) built
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -32,7 +35,8 @@ def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def flash_prefill_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    """Masked softmax attention with GQA expanded, scores and sums in f32.
+    """Masked softmax attention with GQA expanded, scores and sums in f32;
+    v may be narrower or wider than q and k (the output takes v's width).
 
     The arithmetic of ``_flash_kernel`` (and of the reference's
     ``layers.chunked_attention`` when the sequence fits one tile): the
@@ -61,10 +65,11 @@ def flash_prefill_plain(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def _check(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_prefill wants q (B,Sq,H,D), k/v (B,Sk,K,D); "
-                         f"got {tuple(q.shape)} {tuple(k.shape)} "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_prefill wants q (B,Sq,H,D), k (B,Sk,K,D), "
+                         f"v (B,Sk,K,Dv); got {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
     B, _, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"flash_prefill: incompatible q {tuple(q.shape)} "
@@ -74,27 +79,28 @@ def _check(q, k, v) -> None:
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Sq, H, D); k/v: (B, Sk, K, D).  Returns (B, Sq, H, D)."""
+    """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv).  Returns
+    (B, Sq, H, Dv)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
     B, Sq, H, D = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_prefill kernel takes head_dim {HEAD_DIMS}, "
-                         f"not {D}")
+    Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (D, Dv) not in WIDTHS:
+        raise ValueError(f"flash_prefill kernel takes head_dim (D, Dv) in "
+                         f"{WIDTHS}, not {(D, Dv)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() \
                 or t.data_ptr() % 16:
             raise ValueError(f"flash_prefill kernel wants contiguous, "
                              f"16-byte aligned bf16 {name}; got {t.dtype}")
-    out = torch.empty_like(q)
+    out = q.new_empty(B, Sq, H, Dv)
     fn = build.function("flash_attention", "flash_prefill", _ARGTYPES)
     err = build.launch(q.device, fn, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
-                       int(causal), int(window), 1.0 / math.sqrt(D))
+                       Dv, int(causal), int(window), 1.0 / math.sqrt(D))
     if err < 0:
         raise RuntimeError(f"flash_prefill: the K/V tensor maps could not be "
                            f"made (code {err}: -1 no cuTensorMapEncodeTiled "

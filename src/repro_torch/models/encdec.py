@@ -1,0 +1,163 @@
+"""Encoder-decoder (seamless-m4t) in PyTorch: the twin of
+``repro.models.encdec``.  The speech front end is a stub there too: the
+encoder takes precomputed frame embeddings.  A decode step's state is the
+decoder's self-attention cache and the frozen cross-attention K/V.
+
+Params (bf16): ``embed``, ``unembed``, ``enc_norm``, ``final_norm``;
+``enc_layers`` stacks ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}`` and
+``mlp.{w1,w3,w2}`` on a leading layer axis; ``dec_layers`` stacks
+``ln1``, ``ln_cross``, ``ln2``, ``attn``, ``cross`` (the same tree as
+``attn``; its ``wk``/``wv`` project the encoder output) and ``mlp``.  A
+batch is ``frames`` (B, Ss, d_model) and ``tgt_tokens`` (B, St).
+
+Attention goes through the port's kernels: the encoder's non-causal
+``flash_prefill`` over the frames, the decoder's causal one over the
+target, and the cross-attention's non-causal one with St queries over Ss
+keys; a decode step runs ``paged_append`` + ``paged_decode`` over the
+self cache and ``paged_decode`` over the cross cache.  As in the
+reference, the decoder's residual adds are not pinned, the cross
+queries are roped at the target positions and the cross keys are not.
+Each layer loop is a Python loop over the stacked axis; the caches are
+updated in place, where the reference returns new ones.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+
+BF16 = torch.bfloat16
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device="cuda") -> Dict[str, Any]:
+    """Random params with the reference's tree, shapes and init
+    distributions (``lm.init_params`` sends an enc-dec config here)."""
+    I = lm._Init(seed, device)
+    d, ne, nd = cfg.d_model, cfg.n_enc_layers, cfg.n_dec_layers
+    return {
+        "embed": I.dense(cfg.vocab, d), "unembed": I.dense(d, cfg.vocab),
+        "enc_norm": I.full(d), "final_norm": I.full(d),
+        "enc_layers": {"ln1": I.full(ne, d), "ln2": I.full(ne, d),
+                       "attn": lm._attn_init(I, cfg, ne),
+                       "mlp": lm._ffn_init(I, cfg, ne)},
+        "dec_layers": {"ln1": I.full(nd, d), "ln_cross": I.full(nd, d),
+                       "ln2": I.full(nd, d),
+                       "attn": lm._attn_init(I, cfg, nd),
+                       "cross": lm._attn_init(I, cfg, nd),
+                       "mlp": lm._ffn_init(I, cfg, nd)},
+    }
+
+
+def _positions(n: int, device):
+    return torch.arange(n, dtype=torch.int32, device=device)[None, :]
+
+
+def _run_encoder(params, frames, cfg):
+    """The encoder over the frames, non-causal; its output normed."""
+    x = frames.to(BF16)
+    positions = _positions(x.shape[1], x.device)
+    for i in range(cfg.n_enc_layers):
+        lp = lm._layer(params["enc_layers"], i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, _, _ = L.gqa_attention_full(h, lp["attn"], cfg, positions,
+                                       causal=False)
+        x = x + y
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.ffn_swiglu(h, lp["mlp"])
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_kv(lp_cross, enc_out):
+    """One layer's cross K/V (B, Ss, K, dh) from the encoder output."""
+    k = torch.einsum("bsd,dkx->bskx", enc_out, lp_cross["wk"])
+    v = torch.einsum("bsd,dkx->bskx", enc_out, lp_cross["wv"])
+    return k.contiguous(), v.contiguous()
+
+
+def _decoder_block(x, lp, cfg, positions, enc_out):
+    """Returns (x, (self k, self v, cross k, cross v))."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, sk, sv = L.gqa_attention_full(h, lp["attn"], cfg, positions)
+    x = x + y
+    h = L.rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+    ck, cv = _cross_kv(lp["cross"], enc_out)
+    y, _, _ = L.gqa_attention_full(h, lp["cross"], cfg, positions,
+                                   causal=False, kv_override=(ck, cv))
+    x = x + y
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.ffn_swiglu(h, lp["mlp"]), (sk, sv, ck, cv)
+
+
+def _run_decoder(params, batch, cfg):
+    """The decoder over the target tokens; returns (x, [per-layer (sk,
+    sv, ck, cv)])."""
+    enc_out = _run_encoder(params, batch["frames"], cfg)
+    x = params["embed"][batch["tgt_tokens"]]
+    positions = _positions(x.shape[1], x.device)
+    kvs = []
+    for i in range(cfg.n_dec_layers):
+        x, kv = _decoder_block(x, lm._layer(params["dec_layers"], i), cfg,
+                               positions, enc_out)
+        kvs.append(kv)
+    return x, kvs
+
+
+def forward_train(params, batch, cfg):
+    raise NotImplementedError("encdec.forward_train comes with the "
+                              "training slice (ROADMAP Queue 1 item 7)")
+
+
+def forward_logits(params, batch, cfg):
+    """Logits (B, St, V) f32 over the target tokens."""
+    x, _ = _run_decoder(params, batch, cfg)
+    return lm._final(params, x, cfg)
+
+
+def init_cache(cfg, batch, max_len, dtype=BF16, device="cuda",
+               src_len: Optional[int] = None):
+    """Self-attention cache (decoder) and cross K/V (filled by prefill)."""
+    K, dh, n = cfg.n_kv_heads, cfg.head_dim, cfg.n_dec_layers
+    src_len = src_len or max_len
+
+    def zeros(s):
+        return torch.zeros(n, batch, s, K, dh, dtype=dtype, device=device)
+
+    return {"k": zeros(max_len), "v": zeros(max_len),
+            "cross_k": zeros(src_len), "cross_v": zeros(src_len)}
+
+
+def prefill(params, batch, cfg, max_len: Optional[int] = None):
+    """Encode the frames and prefill the decoder over the target prefix.
+    Returns (last_logits (B,1,V) f32, cache {k, v: (Ld, B, max_len, K,
+    dh), cross_k, cross_v: (Ld, B, Ss, K, dh)})."""
+    x, kvs = _run_decoder(params, batch, cfg)
+    max_len = max_len or x.shape[1]
+    sk, sv, ck, cv = (torch.stack(z) for z in zip(*kvs))
+    cache = {"k": lm._pad_seq(sk, max_len, 2),
+             "v": lm._pad_seq(sv, max_len, 2), "cross_k": ck, "cross_v": cv}
+    return lm._final(params, x[:, -1:, :], cfg), cache
+
+
+def decode_step(params, tokens, cache, pos, cfg):
+    """One decode step: tokens (B, 1) ids at ``pos`` (an int or (B,)); the
+    self cache written in place.  Returns (logits (B,1,V) f32, cache)."""
+    x = params["embed"][tokens]
+    pos = lm.decode_positions(pos, x, cache)
+    for i in range(cfg.n_dec_layers):
+        lp = lm._layer(params["dec_layers"], i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, _, _ = L.gqa_attention_decode(h, lp["attn"], cfg, cache["k"][i],
+                                         cache["v"][i], pos)
+        x = x + y
+        h = L.rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        x = x + L.cross_attention_decode(h, lp["cross"], cfg,
+                                         cache["cross_k"][i],
+                                         cache["cross_v"][i], pos)
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.ffn_swiglu(h, lp["mlp"])
+    return lm._final(params, x, cfg), cache

@@ -1,18 +1,24 @@
 """Model primitives in PyTorch: the twins of the functions of
 ``repro.models.layers`` that the port's model paths run (the uniform GQA
-decoder, the dense-impl MoE of mixtral's layers and jamba's slots,
-rwkv6's group norm).
+decoder, deepseek-v2's MLA, seamless's cross-attention, the dense-impl
+MoE of mixtral's and deepseek's layers and jamba's slots, rwkv6's group
+norm).
 
-Attention goes through the port's kernels: ``gqa_attention_full`` calls
-``flash_prefill``; ``gqa_attention_decode_paged`` and
-``gqa_attention_decode`` (over a contiguous per-layer cache, read as one
-block per row) call ``paged_append`` then ``paged_decode``.  Each kernel
-takes its plain PyTorch version on a CPU tensor.  The plain attention (``decode_attention``,
-``paged_kv_gather``, ``expand_kv``) lives beside the kernels in
-``repro_torch.kernels``.  Projections and the FFN stay ``torch.einsum`` /
-``matmul``, as the reference leaves them to XLA.
+Attention goes through the port's kernels: ``gqa_attention_full`` and
+``mla_attention_full`` call ``flash_prefill``; ``gqa_attention_decode_paged``
+and ``gqa_attention_decode`` (over a contiguous per-layer cache, read as
+one block per row) call ``paged_append`` then ``paged_decode``;
+``cross_attention_decode`` calls ``paged_decode`` over the frozen cross
+cache.  MLA's decode is absorbed-matrix products over the latent cache, as
+the reference computes it outside any kernel.  Each kernel takes its
+plain PyTorch version on a CPU tensor.  The plain attention
+(``decode_attention``, ``paged_kv_gather``, ``expand_kv``) lives beside
+the kernels in ``repro_torch.kernels``.  Projections and the FFN stay
+``torch.einsum`` / ``matmul``, as the reference leaves them to XLA.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +27,7 @@ from repro_torch.kernels.flash_attention.ops import flash_prefill
 from repro_torch.kernels.paged_attention.ops import paged_append, paged_decode
 
 F32 = torch.float32
+NEG_INF = -1e30
 
 
 def pin_bf16(x):
@@ -77,27 +84,40 @@ def paged_kv_update(k_pool, v_pool, k_new, v_new, block_ids, offsets):
                         v_new[:, 0].contiguous(), block_ids, offsets)
 
 
+def gqa_q(x, p, cfg, positions, *, qk_norm: bool = True):
+    """The query half of ``gqa_qkv``: q (B,S,H,D) projected, normed where
+    ``cfg.qk_norm`` (and ``qk_norm``), roped at ``positions``; contiguous."""
+    q = torch.einsum("bsd,dhx->bshx", x, p["wq"])
+    if cfg.qk_norm and qk_norm:
+        q = rms_norm(q, p["qnorm"], cfg.norm_eps)
+    return apply_rope(q, positions, cfg.rope_theta).contiguous()
+
+
 def gqa_qkv(x, p, cfg, positions):
     """Project + rope.  Head-factored weights (d,H,dh)/(d,K,dh).
     Returns q (B,S,H,D), k,v (B,S,K,D), contiguous."""
-    q = torch.einsum("bsd,dhx->bshx", x, p["wq"])
     k = torch.einsum("bsd,dkx->bskx", x, p["wk"])
     v = torch.einsum("bsd,dkx->bskx", x, p["wv"])
     if cfg.qk_norm:
-        q = rms_norm(q, p["qnorm"], cfg.norm_eps)
         k = rms_norm(k, p["knorm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return gqa_q(x, p, cfg, positions), k.contiguous(), v.contiguous()
 
 
-def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True):
+def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
+                       kv_override=None):
     """Full-sequence attention (prefill) through the flash kernel.
-    Returns (y, k, v)."""
+    ``kv_override`` (k, v), each (B, Sk, K, dh): a cross-attention's keys
+    and values, taken as they are (no rope), while q is roped at
+    ``positions``, as the reference does; the projections it replaces are
+    not computed.  Returns (y, k, v)."""
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit soft-capping is not "
                                   "ported: the flash kernel has no cap")
-    q, k, v = gqa_qkv(x, p, cfg, positions)
+    if kv_override is None:
+        q, k, v = gqa_qkv(x, p, cfg, positions)
+    else:
+        q, (k, v) = gqa_q(x, p, cfg, positions), kv_override
     y = flash_prefill(q, k, v, causal=causal, window=cfg.sliding_window)
     return torch.einsum("bshx,hxd->bsd", y, p["wo"]), k, v
 
@@ -146,6 +166,90 @@ def gqa_attention_decode(x, p, cfg, k_cache, v_cache, pos):
     y = paged_decode(q[:, 0].contiguous(), k_cache, v_cache,
                      *_contiguous_table(pos), window=cfg.sliding_window)
     return torch.einsum("bhx,hxd->bd", y, p["wo"])[:, None], k_cache, v_cache
+
+
+def cross_attention_decode(x, p, cfg, k_cross, v_cross, pos):
+    """One-token cross-attention over a frozen cross cache (B, Ss, K, dh):
+    q projected and roped at ``pos`` (B,) int32, the cross K/V unroped, as
+    the reference's ``encdec.decode_step`` does; every one of the Ss
+    positions visible (its ``decode_attention`` at position Ss - 1).  Read
+    through ``paged_decode`` as one block of Ss a row.  The reference's
+    decode applies no qk_norm to this q (its prefill does)."""
+    B, Ss = k_cross.shape[0], k_cross.shape[1]
+    q = gqa_q(x, p, cfg, pos[:, None], qk_norm=False)
+    tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    lens = torch.full((B,), Ss, dtype=torch.int32, device=x.device)
+    y = paged_decode(q[:, 0], k_cross, v_cross, tables, lens)
+    return torch.einsum("bhx,hxd->bd", y, p["wo"])[:, None]
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# ---------------------------------------------------------------------------
+def _mla_q(x, p, cfg, positions):
+    """q (B, S, H, nope + rope), its rope part roped at ``positions``."""
+    nope = cfg.qk_nope_head_dim
+    cq = rms_norm(x @ p["wdq"], p["q_ln"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhx->bshx", cq, p["wuq"])
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    return q[..., :nope], q_rope
+
+
+def _mla_latent(x, p, cfg, positions):
+    """The compressed cache entries of x: the normed latent (B, S, r) and
+    the rope key (B, S, rope), roped at ``positions``."""
+    r = cfg.kv_lora_rank
+    ckv_full = x @ p["wdkv"]
+    ckv = rms_norm(ckv_full[..., :r], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[:, :, None, r:], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def mla_attention_full(x, p, cfg, positions):
+    """Prefill MLA: the latent expanded to per-head keys and values, k's
+    rope part shared by the H heads, causal attention through
+    ``flash_prefill`` at query-key width nope + rope and value width
+    v_head_dim.  Returns (y, ckv (B, S, r), k_rope (B, S, rope))."""
+    B, S, _ = x.shape
+    H, nope = cfg.n_heads, cfg.qk_nope_head_dim
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    ckv, k_rope = _mla_latent(x, p, cfg, positions)
+    kv = torch.einsum("bsr,rhx->bshx", ckv, p["wukv"])
+    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(
+        B, S, H, cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    v = kv[..., nope:].contiguous()
+    y = flash_prefill(q, k, v, causal=True)
+    return torch.einsum("bshv,hvd->bsd", y, p["wo"]), ckv, k_rope
+
+
+def mla_attention_decode(x, p, cfg, ckv_cache, krope_cache, pos):
+    """Absorbed-matrix MLA decode over the compressed latent cache
+    (B, max_len, r) and rope keys (B, max_len, rope), updated in place:
+    the new entries are written at ``pos`` (B,) int32, then every slot at
+    or before it is attended, in f32 over the upcast cache as the
+    reference computes it.  Returns (y, ckv_cache, krope_cache)."""
+    B, nope = x.shape[0], cfg.qk_nope_head_dim
+    q_nope, q_rope = _mla_q(x, p, cfg, pos[:, None])
+    ckv_new, krope_new = _mla_latent(x, p, cfg, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    ckv_cache[rows, pos.long()] = ckv_new[:, 0]
+    krope_cache[rows, pos.long()] = krope_new[:, 0]
+    wk_b, wv_b = p["wukv"][..., :nope], p["wukv"][..., nope:]
+    q_lat = torch.einsum("bxhn,rhn->bhr", q_nope.float(), wk_b.float())
+    ckv = ckv_cache.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+         + torch.einsum("bxhp,bsp->bhs", q_rope.float(),
+                        krope_cache.float())) \
+        * (1.0 / math.sqrt(nope + cfg.qk_rope_head_dim))
+    S = ckv_cache.shape[1]
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), ckv)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b.float())
+    y = o[:, None].to(x.dtype)                          # (B, 1, H, vd)
+    return torch.einsum("bshv,hvd->bsd", y, p["wo"]), ckv_cache, krope_cache
 
 
 def ffn_swiglu(x, p):

@@ -1,7 +1,9 @@
 """Decoder-only LM in PyTorch: init, the JAX parameter bridge, prefill,
-decode and full-sequence logits for the dense and moe (uniform GQA), vlm
-(uniform GQA after a patch stream), ssm (rwkv6) and hybrid (jamba
-superblocks) families.
+decode and full-sequence logits for the dense and moe (uniform GQA, or
+deepseek-v2's MLA), vlm (uniform GQA after a patch stream), ssm (rwkv6)
+and hybrid (jamba superblocks) families; the encoder-decoder (seamless,
+family "audio") lives in ``repro_torch.models.encdec``, and the entry
+points here send it there, as the reference's do.
 
 The twin of ``repro.models.lm``.  Params are a plain dict with the
 reference tree's keys and shapes (bf16, except mamba's f32 ``A_log``;
@@ -10,7 +12,8 @@ math accumulates in f32 where the reference's does):
 - dense / vlm: ``layers`` holds ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``
   and ``mlp.{w1,w3,w2}`` stacked on a leading layer axis; moe's ``mlp``
   is an expert stack ``{router, w1, w3, w2}`` (the dense impl: every
-  expert computed, then gated);
+  expert computed, then gated); MLA's ``attn`` is ``{wdq, q_ln, wuq,
+  wdkv, kv_ln, wukv, wo}``;
 - ssm: ``layers`` holds ``ln1``, ``ln2``, ``tm`` (time mix) and ``cm``
   (channel mix) stacked the same way;
 - hybrid: ``superblocks`` stacks, per superblock of ``attn_period`` slots,
@@ -22,12 +25,13 @@ put before the token embeddings; positions run 0..P+S-1, so a decode step
 after it takes positions counted with P.
 
 The reference's layer ``scan`` is a Python loop over the stacked axis.
-Caches: dense / moe / vlm {k, v} (L, B, max_len, K, dh); ssm {wkv,
-shift_tm, shift_cm}; hybrid {k, v} per superblock plus {conv, ssm} per
-mamba slot.  ``decode_step`` (every family, over these caches) and
-``decode_step_paged`` (the uniform GQA families, over the serving pool)
-update them in place, where the reference returns new ones.  MLA and
-enc-dec are not ported and raise.
+Caches: dense / moe / vlm {k, v} (L, B, max_len, K, dh); MLA {ckv (L, B,
+max_len, kv_lora_rank), krope (L, B, max_len, qk_rope_head_dim)}; ssm
+{wkv, shift_tm, shift_cm}; hybrid {k, v} per superblock plus {conv, ssm}
+per mamba slot; enc-dec {k, v, cross_k, cross_v}.  ``decode_step`` (every
+family, over these caches) and ``decode_step_paged`` (the uniform GQA
+families, over the serving pool) update them in place, where the
+reference returns new ones.
 """
 from __future__ import annotations
 
@@ -43,18 +47,21 @@ from repro_torch.models import rwkv as R
 
 F32 = torch.float32
 BF16 = torch.bfloat16
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The families the model functions take.  The serving engine has its
-    own, narrower guard (``serving/engine.py``)."""
-    if cfg.family not in FAMILIES or cfg.enc_dec or cfg.use_mla \
-            or bool(cfg.attn_period) != (cfg.family == "hybrid"):
+    """The families the model functions take: MLA in the uniform stacks
+    only, enc-dec as the "audio" family, as the reference builds them.
+    The serving engine has its own, narrower guard
+    (``serving/engine.py``)."""
+    if cfg.family not in FAMILIES or cfg.enc_dec != (cfg.family == "audio") \
+            or bool(cfg.attn_period) != (cfg.family == "hybrid") \
+            or (cfg.use_mla and cfg.family not in ("dense", "moe", "vlm")):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the port's model functions cover "
-            f"the dense, moe, vlm, ssm and hybrid families; MLA and "
-            f"enc-dec come in a later slice")
+            f"the dense, moe (GQA or MLA), vlm, ssm, hybrid and enc-dec "
+            f"families as the reference builds them")
 
 
 # ===========================================================================
@@ -88,6 +95,15 @@ class _Init:
 
 def _attn_init(I: _Init, cfg: ModelConfig, *n):
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.use_mla:
+        nope, rd, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+        qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+        return {"wdq": I.dense(*n, d, qr), "q_ln": I.full(*n, qr),
+                "wuq": I.dense(*n, qr, H, nope + rd),
+                "wdkv": I.dense(*n, d, kr + rd), "kv_ln": I.full(*n, kr),
+                "wukv": I.dense(*n, kr, H, nope + vd),
+                "wo": I.dense(*n, H, vd, d)}
     p = {"wq": I.dense(*n, d, H, dh), "wk": I.dense(*n, d, K, dh),
          "wv": I.dense(*n, d, K, dh), "wo": I.dense(*n, H, dh, d)}
     if cfg.qk_norm:
@@ -176,6 +192,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_params: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        return encdec.init_params(cfg, seed, device)
     I = _Init(seed, device)
     d, n = cfg.d_model, cfg.n_layers
     params: Dict[str, Any] = {"embed": I.dense(cfg.vocab, d),
@@ -264,30 +283,35 @@ def _mlp(h, p, cfg):
 
 
 def _uniform_block(x, lp, cfg, positions):
+    """Returns (x, the layer's cache entries): (k, v), or MLA's (ckv,
+    k_rope)."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, k, v = L.gqa_attention_full(h, lp["attn"], cfg, positions)
+    attn = L.mla_attention_full if cfg.use_mla else L.gqa_attention_full
+    y, c1, c2 = attn(h, lp["attn"], cfg, positions)
     x = L.pin_bf16(x + L.pin_bf16(y))
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     y = _mlp(h, lp["mlp"], cfg)
-    return L.pin_bf16(x + L.pin_bf16(y)), (k, v)
+    return L.pin_bf16(x + L.pin_bf16(y)), (c1, c2)
 
 
 def _run_uniform(params, x, cfg, positions):
-    ks, vs = [], []
+    c1s, c2s = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _uniform_block(x, _layer(params["layers"], i), cfg,
-                                   positions)
-        ks.append(k)
-        vs.append(v)
-    return x, (torch.stack(ks), torch.stack(vs))
+        x, (c1, c2) = _uniform_block(x, _layer(params["layers"], i), cfg,
+                                     positions)
+        c1s.append(c1)
+        c2s.append(c2)
+    return x, (torch.stack(c1s), torch.stack(c2s))
 
 
-def _uniform_decode_block(x, lp, kc, vc, cfg, pos):
+def _uniform_decode_block(x, lp, c1, c2, cfg, pos):
     """Twin of ``_uniform_block`` for one token over a contiguous per-layer
-    cache (B, max_len, K, dh), updated in place, with the same
-    residual-stream rounding points."""
+    cache, (B, max_len, K, dh) k and v or MLA's latent (B, max_len, r) and
+    rope keys, updated in place, with the same residual-stream rounding
+    points."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, kc, vc = L.gqa_attention_decode(h, lp["attn"], cfg, kc, vc, pos)
+    attn = L.mla_attention_decode if cfg.use_mla else L.gqa_attention_decode
+    y, c1, c2 = attn(h, lp["attn"], cfg, c1, c2, pos)
     x = L.pin_bf16(x + L.pin_bf16(y))
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     y = _mlp(h, lp["mlp"], cfg)
@@ -449,6 +473,9 @@ def forward_logits(params, batch, cfg: ModelConfig):
     vlm's ``batch["patches"]`` (B, P, d_model).  Returns logits (B, P + S,
     V) f32 (P = 0 outside vlm)."""
     check_family(cfg)
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        return encdec.forward_logits(params, batch, cfg)
     x, positions = _assemble_inputs(params, batch, cfg)
     if cfg.family == "ssm":
         x, _ = _run_rwkv(params, x, cfg)
@@ -460,9 +487,16 @@ def forward_logits(params, batch, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=BF16,
-               device="cuda") -> Dict[str, Any]:
-    """Zero decode caches with the reference's keys, shapes and types."""
+               device="cuda", src_len: Optional[int] = None
+               ) -> Dict[str, Any]:
+    """Zero decode caches with the reference's keys, shapes and types;
+    enc-dec's cross caches hold ``src_len`` frames (``max_len`` where not
+    given)."""
     check_family(cfg)
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        return encdec.init_cache(cfg, batch, max_len, dtype, device,
+                                 src_len=src_len or max_len)
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -481,6 +515,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=BF16,
                 "conv": zeros(nsb, nm, batch, cfg.mamba_d_conv - 1, di),
                 "ssm": zeros(nsb, nm, batch, di, ds, dt=F32)}
     n = cfg.n_layers
+    if cfg.use_mla:
+        return {"ckv": zeros(n, batch, max_len, cfg.kv_lora_rank),
+                "krope": zeros(n, batch, max_len, cfg.qk_rope_head_dim)}
     return {"k": zeros(n, batch, max_len, K, dh),
             "v": zeros(n, batch, max_len, K, dh)}
 
@@ -489,11 +526,16 @@ def prefill(params, batch, cfg: ModelConfig,
             max_len: Optional[int] = None):
     """Full-sequence prefill.  batch["tokens"]: (B, S) integer ids, after
     vlm's ``batch["patches"]`` (B, P, d_model); ``max_len`` counts the
-    patches too.  Returns (last_logits (B,1,V) f32, cache): dense / moe /
-    vlm {"k", "v": (L, B, max_len, K, dh)}; ssm {"wkv", "shift_tm",
-    "shift_cm"}; hybrid {"k", "v": (nsb, B, max_len, K, dh), "conv",
-    "ssm"}."""
+    patches too; an enc-dec batch is ``frames`` (B, Ss, d_model) and
+    ``tgt_tokens`` (B, St).  Returns (last_logits (B,1,V) f32, cache):
+    dense / moe / vlm {"k", "v": (L, B, max_len, K, dh)}, MLA {"ckv",
+    "krope"}; ssm {"wkv", "shift_tm", "shift_cm"}; hybrid {"k", "v": (nsb,
+    B, max_len, K, dh), "conv", "ssm"}; enc-dec {"k", "v", "cross_k",
+    "cross_v"}."""
     check_family(cfg)
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        return encdec.prefill(params, batch, cfg, max_len)
     x, positions = _assemble_inputs(params, batch, cfg)
     max_len = max_len or x.shape[1]
     if cfg.family == "ssm":
@@ -504,8 +546,10 @@ def prefill(params, batch, cfg: ModelConfig,
         cache = {"k": _pad_seq(k, max_len, 2), "v": _pad_seq(v, max_len, 2),
                  "conv": st["conv"], "ssm": st["ssm"]}
     else:
-        x, (k, v) = _run_uniform(params, x, cfg, positions)
-        cache = {"k": _pad_seq(k, max_len, 2), "v": _pad_seq(v, max_len, 2)}
+        x, (c1, c2) = _run_uniform(params, x, cfg, positions)
+        names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+        cache = {names[0]: _pad_seq(c1, max_len, 2),
+                 names[1]: _pad_seq(c2, max_len, 2)}
     return _final(params, x[:, -1:, :], cfg), cache
 
 
@@ -523,26 +567,24 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
     cache: ``prefill``'s or ``init_cache``'s, updated in place (the
     reference returns a new one).  Returns (logits (B,1,V) f32, cache).
 
-    A position at or past the k/v cache's ``max_len`` raises (on the card,
-    as a device-side assert: no host sync).  The reference's
-    ``dynamic_update_slice`` clamps it to the last slot and attends over
-    every slot; the port's append would drop it.  The serving runtime
+    A position at or past the k/v (or MLA latent) cache's ``max_len``
+    raises (on the card, as a device-side assert: no host sync).  The
+    reference's ``dynamic_update_slice`` clamps it to the last slot and
+    attends over every slot; the port's append would drop it.  The serving runtime
     never gets there: a program's context is capped at ``max_len``
     (``workflow/program.py``), so the last decoded token sits at
     ``max_len - 1``."""
     check_family(cfg)
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        return encdec.decode_step(params, tokens, cache, pos, cfg)
     x = embed_tokens(params, tokens, cfg)
-    B = x.shape[0]
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device
-                          ).broadcast_to((B,)).contiguous()
-    if "k" in cache:
-        torch._assert_async((pos < cache["k"].shape[2]).all(),
-                            "decode_step: a position at or past the cache's "
-                            "max_len")
+    pos = decode_positions(pos, x, cache)
     if cfg.family in ("dense", "moe", "vlm"):
+        c1, c2 = ("ckv", "krope") if cfg.use_mla else ("k", "v")
         for i in range(cfg.n_layers):
             x = _uniform_decode_block(x, _layer(params["layers"], i),
-                                      cache["k"][i], cache["v"][i], cfg, pos)
+                                      cache[c1][i], cache[c2][i], cfg, pos)
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x, st = _rwkv_decode_block(
@@ -562,6 +604,20 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
     return _final(params, x, cfg), cache
 
 
+def decode_positions(pos, x, cache):
+    """``decode_step``'s ``pos`` (an int or (B,)) as (B,) int32 on x's
+    device, asserted below the self-attention cache's ``max_len`` where the
+    cache has one ("k", or MLA's "ckv")."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device
+                          ).broadcast_to((x.shape[0],)).contiguous()
+    seq = cache.get("k", cache.get("ckv"))
+    if seq is not None:
+        torch._assert_async((pos < seq.shape[2]).all(),
+                            "decode_step: a position at or past the cache's "
+                            "max_len")
+    return pos
+
+
 def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
                       block_ids, offsets, cfg: ModelConfig):
     """One decode step attending over the serving pool's blocks in place.
@@ -571,11 +627,11 @@ def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
     pos: (B,) int32 position of the new token; block_ids/offsets: (B,)
     int32 append destination of its K/V (idle rows pass num_blocks, a
     drop sentinel).  Covers the uniform GQA-cache families (dense, moe,
-    vlm), as the reference's does.  The pools are updated in place, where
-    the reference returns new arrays.  Returns (logits (B,1,V) f32,
-    k_pool, v_pool)."""
+    vlm) and refuses MLA and enc-dec, as the reference's does.  The pools
+    are updated in place, where the reference returns new arrays.  Returns
+    (logits (B,1,V) f32, k_pool, v_pool)."""
     check_family(cfg)
-    if cfg.family == "ssm" or cfg.attn_period:
+    if cfg.family == "ssm" or cfg.attn_period or cfg.use_mla or cfg.enc_dec:
         raise ValueError("paged decode covers the uniform GQA-cache "
                          "families")
     x = embed_tokens(params, tokens, cfg)

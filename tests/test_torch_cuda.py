@@ -74,6 +74,45 @@ def test_flash_window_bites_at_mixtral_width(cuda):
     assert bite > max(4 * err, 1e-3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("S", [32, 200, 1056])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_value_width_apart_on_card(cuda, G, S, causal):
+    """deepseek-v2's MLA prefill widths: query-key 192 (three 64-column
+    swizzle blocks) over value 128, the output 128 wide, scale
+    1/sqrt(192); S ragged against the tiles."""
+    g = torch.Generator(device=cuda).manual_seed(S + G)
+    K = 2
+    q, k = (torch.randn(2, S, h, 192, generator=g, device=cuda)
+            .to(torch.bfloat16) for h in (G * K, K))
+    v = torch.randn(2, S, K, 128, generator=g, device=cuda).to(
+        torch.bfloat16)
+    before = F.flash_prefill.launches
+    out = F.flash_prefill(q, k, v, causal=causal)
+    assert F.flash_prefill.launches == before + 1
+    assert out.shape == (2, S, G * K, 128)
+    ref = F.flash_prefill_plain(q, k, v, causal=causal)
+    assert float((out.float() - ref.float()).abs().max()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("Sq,Sk", [(24, 40), (256, 1024), (200, 77)])
+def test_flash_kernel_cross_attention_on_card(cuda, D, Sq, Sk):
+    """Non-causal with Sq != Sk, as seamless's cross-attention runs it
+    (256 target queries over 1024 frames), H = K."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * D + Sk)
+    H = 4
+    q = torch.randn(2, Sq, H, D, generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn(2, Sk, H, D, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    out = F.flash_prefill(q, k, v, causal=False)
+    ref = F.flash_prefill_plain(q, k, v, causal=False)
+    assert float((out.float() - ref.float()).abs().max()) < TOL
+
+
 def _paged_case(cuda, g, lens, G, dh, K=2, blk=16, nb=16):
     """Pools of random bf16, each row's table a random draw of distinct
     blocks, the append's drop sentinel on the last row."""
@@ -120,6 +159,26 @@ def test_paged_kernels_match_plain_on_card(cuda, dh, G, window):
     before = P.paged_decode.launches
     out = P.paged_decode(q, kp, vp, tables, lens, window=window)
     assert P.paged_decode.launches == before + 1
+    P.paged_append_plain(kp2, vp2, kn, vn, ablk, aoff)
+    ref = P.paged_decode_plain(q, kp2, vp2, tables, lens, window=window)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    assert float((out.float() - ref.float()).abs().max()) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("window", [0, 32])
+def test_paged_kernels_at_one_query_head_per_kv_head(cuda, dh, window):
+    """G = 1, as seamless's H = K = 16 decodes: append (with the drop
+    sentinel) then decode, every row at a length on an edge."""
+    g = torch.Generator(device=cuda).manual_seed(dh + window)
+    blk, nb, K = 16, 16, 4
+    lens = _paged_lens(blk, nb, 11 * K)
+    q, kn, vn, kp, vp, tables, lens, ablk, aoff = _paged_case(
+        cuda, g, lens, 1, dh, K=K, blk=blk, nb=nb)
+    kp2, vp2 = kp.clone(), vp.clone()
+    P.paged_append(kp, vp, kn, vn, ablk, aoff)
+    out = P.paged_decode(q, kp, vp, tables, lens, window=window)
     P.paged_append_plain(kp2, vp2, kn, vn, ablk, aoff)
     ref = P.paged_decode_plain(q, kp2, vp2, tables, lens, window=window)
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
@@ -198,6 +257,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     qb = q.to(torch.bfloat16)[..., :8].contiguous()          # head_dim 8
     with pytest.raises(ValueError, match="head_dim"):
         F.flash_prefill(qb, qb[:, :, :2], qb[:, :, :2])
+    q128 = torch.zeros(1, 64, 4, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):      # (128, 64)
+        F.flash_prefill(q128, q128, q128[..., :64].contiguous())
     pool = torch.zeros(4, 16, 2, 16, device=cuda, dtype=torch.bfloat16)
     ids = torch.zeros(1, device=cuda, dtype=torch.int64)     # not int32
     new = torch.zeros(1, 2, 16, device=cuda, dtype=torch.bfloat16)
@@ -566,3 +628,57 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", ["deepseek_v2_236b", "seamless_m4t_large_v2"])
+def test_mla_and_encdec_on_card_match_cpu(cuda, mod, monkeypatch):
+    """deepseek-v2 at the tiny depth with its full head widths (query-key
+    128 + 64, value 128: a pair the flash kernel takes; tiny's 24 / 16 is
+    not) and seamless-tiny: prefill + 4 ``decode_step``s through the
+    kernels on the card against the plain versions on the CPU, from the
+    same seeded weights; the card's MoE held to the CPU's picks."""
+    import dataclasses
+    import importlib
+
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.models.routing_replay import SameRouting
+
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
+    if cfg.use_mla:
+        cfg = dataclasses.replace(cfg, qk_nope_head_dim=128,
+                                  qk_rope_head_dim=64, v_head_dim=128)
+    cpu = lm.init_params(cfg, seed=1, device="cpu")
+    rng = np.random.RandomState(1)
+    prompt = torch.from_numpy(rng.randint(1, cfg.vocab, size=(2, 40)))
+    frames = torch.from_numpy(rng.randn(2, 56, cfg.d_model).astype(
+        np.float32) * 0.02).to(torch.bfloat16)
+    picks = SameRouting(monkeypatch.setattr)
+    outs = {}
+    for dev in ("cpu", cuda):
+        (picks.record if dev == "cpu" else picks.replay)()
+        params = _to(cpu, dev)
+        batch = ({"frames": frames.to(dev), "tgt_tokens": prompt.to(dev)}
+                 if cfg.enc_dec else {"tokens": prompt.to(dev)})
+        before = F.flash_prefill.launches
+        last, cache = lm.prefill(params, batch, cfg, max_len=48)
+        if torch.device(dev).type == "cuda":
+            n = cfg.n_dec_layers * 2 + cfg.n_enc_layers if cfg.enc_dec \
+                else cfg.n_layers
+            assert F.flash_prefill.launches == before + n
+        logits = [last[:, 0]]
+        tok = prompt[:, -1:].to(dev)
+        for p in range(40, 44):
+            lg, cache = lm.decode_step(params, tok, cache, p, cfg)
+            logits.append(lg[:, 0])
+            tok = lg.argmax(-1) if dev == "cpu" else outs["tok"][p - 40]
+            if dev == "cpu":
+                outs.setdefault("tok", []).append(tok.to(cuda))
+        outs[str(dev)] = (torch.stack(logits).float().cpu(),
+                          {k: v.float().cpu() for k, v in cache.items()})
+    (a, ca), (b, cb) = outs["cpu"], outs[str(cuda)]
+    assert float((a - b).abs().max()) < TOL
+    for key in ca:
+        top = max(1.0, float(ca[key].abs().max()))
+        assert float((ca[key] - cb[key]).abs().max()) < TOL * top, key

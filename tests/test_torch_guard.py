@@ -58,17 +58,15 @@ def test_init_params_default_device_is_the_card():
 
 
 def test_port_refuses_what_later_slices_port():
-    """MLA (deepseek-v2) is a later slice: the model functions raise
-    ``NotImplementedError``, and the engine refuses it as the reference's
-    does (an assert there, a ``ValueError`` here)."""
+    """The engine refuses MLA (deepseek-v2) as the reference's does (an
+    assert there, a ``ValueError`` here): its KV paths assume the GQA
+    (k, v) cache."""
     from repro.configs import deepseek_v2_236b as ref_mod
     from repro.serving.engine import Engine as RefEngine
     from repro_torch.configs import deepseek_v2_236b, get_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
     cfg = deepseek_v2_236b.tiny()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lm.init_params(cfg, 0, device="cpu")
     params = lm.init_params(get_config("micro"), 0, device="cpu")
     for paged in (True, False):
         with pytest.raises(ValueError, match="GQA \\(k, v\\) cache"):
@@ -78,20 +76,31 @@ def test_port_refuses_what_later_slices_port():
 
 
 @pytest.mark.parametrize("mod", ["deepseek_v2_236b", "seamless_m4t_large_v2"])
-def test_model_functions_still_refuse_mla_encdec(mod):
-    """MLA (deepseek-v2) and enc-dec (seamless) are later slices: every
-    model entry point raises."""
+def test_model_functions_take_mla_and_encdec(mod):
+    """MLA (deepseek-v2) and enc-dec (seamless) through every model entry
+    point on the CPU: init_params, init_cache, prefill, decode_step and
+    forward_logits; paged decode refuses both, as the reference's
+    asserts."""
     import importlib
     from repro_torch.models import lm
     cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
-    tokens = torch.zeros(1, 4, dtype=torch.long)
-    for call in (lambda: lm.init_params(cfg, 0, device="cpu"),
-                 lambda: lm.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: lm.prefill({}, {"tokens": tokens}, cfg),
-                 lambda: lm.forward_logits({}, {"tokens": tokens}, cfg),
-                 lambda: lm.decode_step({}, tokens[:, :1], {}, 0, cfg)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call()
+    params = lm.init_params(cfg, 0, device="cpu")
+    tokens = torch.arange(1, 7, dtype=torch.long)[None]
+    key = "tgt_tokens" if cfg.enc_dec else "tokens"
+    batch = {key: tokens}
+    if cfg.enc_dec:
+        batch["frames"] = torch.zeros(1, 5, cfg.d_model, dtype=torch.bfloat16)
+    last, cache = lm.prefill(params, batch, cfg, max_len=8)
+    logits, _ = lm.decode_step(params, tokens[:, :1], cache, 6, cfg)
+    full = lm.forward_logits(params, batch, cfg)
+    assert last.shape == logits.shape == (1, 1, cfg.vocab)
+    assert full.shape == (1, 6, cfg.vocab)
+    empty = lm.init_cache(cfg, 1, 8, device="cpu", src_len=5)
+    assert {k: v.shape for k, v in empty.items()} == \
+        {k: v.shape for k, v in cache.items()}
+    with pytest.raises(ValueError, match="uniform GQA-cache"):
+        lm.decode_step_paged(params, tokens[:, :1], None, None, None, None,
+                             None, None, cfg)
 
 
 @pytest.mark.parametrize("mod", ["rwkv6_7b", "jamba_v0_1_52b",

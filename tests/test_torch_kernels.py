@@ -70,6 +70,43 @@ def test_flash_plain_ragged_length_matches_ref():
                                          window=20)) < TOL["f32"]
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_value_width_apart_matches_chunked(dt, causal):
+    """deepseek-v2-tiny's MLA prefill: query-key width 24 (nope 16 + rope
+    8) over value width 16, scale 1/sqrt(24), against the reference's
+    ``chunked_attention`` (which takes Dv = v.shape[-1]); the output takes
+    v's width."""
+    rng = np.random.RandomState(24)
+    B, S, H = 2, 40, 4
+    qj, qt = _pair(rng.randn(B, S, H, 24), dt)
+    kj, kt = _pair(rng.randn(B, S, H, 24), dt)
+    vj, vt = _pair(rng.randn(B, S, H, 16), dt)
+    out = F.flash_prefill(qt, kt, vt, causal=causal)
+    assert out.dtype == TDT[dt] and out.shape == (B, S, H, 16)
+    assert _err(out, jl.chunked_attention(qj, kj, vj, causal=causal)) \
+        < TOL[dt]
+
+
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_plain_cross_attention_matches_ref(D, dt):
+    """A cross-attention: non-causal, 24 queries over 40 keys (Sq != Sk),
+    GQA, against the reference's ``attention_dense`` and
+    ``chunked_attention`` (the kv heads expanded, as its callers do)."""
+    rng = np.random.RandomState(D + 1)
+    B, Sq, Sk, H, K = 2, 24, 40, 4, 2
+    qj, qt = _pair(rng.randn(B, Sq, H, D), dt)
+    kj, kt = _pair(rng.randn(B, Sk, K, D), dt)
+    vj, vt = _pair(rng.randn(B, Sk, K, D), dt)
+    out = F.flash_prefill(qt, kt, vt, causal=False)
+    assert out.dtype == TDT[dt] and out.shape == (B, Sq, H, D)
+    assert _err(out, jl.attention_dense(qj, kj, vj, causal=False)) < TOL[dt]
+    chunked = jl.chunked_attention(qj, jl.expand_kv(kj, H),
+                                   jl.expand_kv(vj, H), causal=False)
+    assert _err(out, chunked) < TOL[dt]
+
+
 # --- paged decode ------------------------------------------------------------
 def _paged_inputs(rng, B, H, K, dh, block, nblocks, nb, dt):
     qj, qt = _pair(rng.randn(B, H, dh), dt)
