@@ -50,7 +50,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``mamba_scan``'s record also gives its lanes a channel (``lanes``) and
    the special-function units' floor (``sfu_floor_ms``).  The profiler's
    device time counts every kernel a wrapper launches, and fails if
-   another kernel runs in the window.
+   another kernel runs in the window.  An empty kernel launched as
+   ``paged_append`` is (4 CTAs of 128 threads, through ctypes) is timed as
+   the least a separate launch takes (``launch_floor_ms``, device
+   ``launch_floor_device_ms``, in ``paged_append``'s record).
 3. Reference checks on small inputs: micro's prefill and paged-decode
    logits, and rwkv6-tiny's and jamba-tiny's prefill + 4 ``decode_step``s,
    through the kernels on the card against the plain versions on the CPU.
@@ -146,6 +149,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    query alone roped at the position before must each fail the logits
    (the state check compares the very caches the first three replace,
    and no cache shows the fourth).
+11. Training: llama3.2-3b at full width and depth (random bf16 from seed
+   0 on the card), B=2 x 1024 ``SyntheticLM`` tokens.  Step 0's
+   ``lm.forward_train`` loss (plain blocked attention, under autograd)
+   against the cross-entropy of ``lm.forward_logits`` on the same batch
+   (28 flash_prefill launches, the path's only ones) within 2e-2
+   relative; every gradient leaf finite and nonzero, and not with the
+   attention output detached before ``wo`` (planted); ``train_loop`` for
+   12 AdamW steps at lr 3e-4 launches no kernel, and its last loss is
+   below its first (step time, tokens a second, peak memory, one profiled
+   step); 6 steps with a checkpoint at step 6 in a temporary directory,
+   then a fresh ``train_loop(resume=True)``: the state restored bit-equal
+   to the saving run's, batch 6's tokens first, steps 6-11's losses equal
+   to the uninterrupted run's (or within 1e-3 relative).  12 steps, not
+   8: at full width AdamW's first steps raise the loss on this stream,
+   the reference's as the port's (``tools/train_wide_parity.py``), and
+   it falls below step 0's from step 8.  Then the ten tiny
+   families' ``forward_train`` + backward on the card against the CPU
+   (loss and every gradient leaf within 2e-2).
    Phases 5-6 and 9-10 run through one ``serve_path``, with phases 5-6's
    forward on the prompt and prefill-vs-forward check.  Both phases run
    before a failed check ends the script; each counts its launches under
@@ -457,6 +478,7 @@ def paged_g1_shapes(torch, gen, recs):
 
 
 def paged_phase(torch, gen, gen_more):
+    from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import ops as P
 
     recs = {}
@@ -539,6 +561,18 @@ def paged_phase(torch, gen, gen_more):
         log(f"  paged append time {ams:.4f} ms (device {adev} ms)  plain "
             f"{aplain:.4f} ms  "
             f"bound {abms:.6f} ms ({aby})")
+        # the floor under any separate launch: an empty kernel launched as
+        # paged_append is (B CTAs of 128 threads, through ctypes)
+        floor = build.function("paged_attention", "launch_floor",
+                               [ctypes.c_int, ctypes.c_void_p])
+        run_floor = lambda: build.launch(kp.device, floor, B)  # noqa: E731
+        fms = timed(torch, run_floor)
+        fdev = device_ms(torch, run_floor, "launch_floor_kernel")
+        recs["paged_append"].update(launch_floor_ms=fms,
+                                    launch_floor_device_ms=fdev)
+        log(f"  launch floor (an empty kernel, {B} CTAs of 128 threads) "
+            f"{fms:.4f} ms (device {fdev} ms): the least a separate "
+            f"paged_append launch takes")
     more = paged_more_shapes(torch, gen_more, errs)
     recs["paged_decode"]["more_shapes"] = more["paged_decode"]
     recs["paged_append"]["more_shapes"] = more["paged_append"]
@@ -2142,6 +2176,357 @@ def text_engine(torch, np, card, wrappers, cfg, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+# Step 0's loss through the training path (plain blocked attention in f32
+# sums) against the cross-entropy of ``lm.forward_logits`` (flash_prefill)
+# on the same batch: the bf16 TOL_BF16, relative.  A resumed run's losses
+# against the uninterrupted run's: equal, or within TOL_RESTART relative
+# where the embedding's backward (``index_put_`` with accumulate, CUDA
+# atomics) sums in another order.  The ten tiny families, card against
+# CPU: the loss within TOL_BF16 relative, every gradient leaf within
+# TOL_BF16 of its largest magnitude (rwkv6's and jamba's read 1.2e-2 and
+# 1.3e-2 in bf16 on an NVIDIA H100 80GB HBM3 at 700 W; against the JAX
+# package on the CPU the port's part by up to 4.4e-2, which
+# tests/test_torch_forward_train.py holds in f32 instead).
+TOL_RESTART = 1e-3
+TRAIN_ARCHS = ["jamba_v0_1_52b", "deepseek_v2_236b", "mixtral_8x22b",
+               "command_r_35b", "mistral_nemo_12b", "qwen3_32b",
+               "llama3_2_3b", "llava_next_34b", "rwkv6_7b",
+               "seamless_m4t_large_v2"]
+
+
+def named_leaves(tree, prefix=""):
+    """(key path, tensor) of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def clear_grads(params):
+    for _, p in named_leaves(params):
+        p.grad = None
+
+
+def unreal_grads(torch, params):
+    """The leaves whose gradient is missing, not finite or all zero."""
+    bad = []
+    for name, p in named_leaves(params):
+        g = p.grad
+        if g is None or not bool(torch.isfinite(g).all()) \
+                or not bool(g.any()):
+            bad.append(name)
+    return bad
+
+
+def mean_xent(torch, logits, labels):
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    lab = logits.float().gather(-1, labels.long()[..., None])[..., 0]
+    return float((lse - lab).mean())
+
+
+def train_paths(torch, np, card):
+    """Phase 11: ``train_llama`` then ``train_families``.  Both run before
+    a failed check ends the script.  Returns the launches by path."""
+    fails = []
+    launches = train_llama(torch, np, card, fails)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_families(torch, np, card, fails)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {"train llama3.2-3b": launches}
+
+
+def train_llama(torch, np, card, fails):
+    """llama3.2-3b at full width and depth, B=2 x 1024 ``SyntheticLM``
+    tokens: step 0's loss against ``forward_logits`` (28 flash launches,
+    the path's only ones); every gradient leaf real, and not under a
+    planted detach of the attention output; ``train_loop`` for 12 AdamW
+    steps at lr 3e-4 (no kernel launched, the loss falling; step time,
+    tokens a second, peak memory, one profiled step); 6 steps with a
+    checkpoint at 6, and a fresh ``train_loop(resume=True)`` from it
+    (state bit-equal, batch 6's tokens, steps 6-11's losses).  Returns the
+    launches of the loss check."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import SyntheticLM
+
+    wrappers = all_wrappers()
+    none = dict.fromkeys(wrappers, 0)
+    cfg = get_config("llama3.2-3b")
+    B, S, steps, lr = 2, 1024, 12, 3e-4
+    half = steps // 2
+    kw = dict(steps=steps, batch=B, seq=S, lr=lr, seed=0, log_every=1,
+              device="cuda")
+    params = ready(torch, lm, cfg)       # train_loop's seed-0 init
+    batch0 = {k: torch.from_numpy(v).cuda()
+              for k, v in SyntheticLM(cfg, B, S, seed=0).next().items()}
+    reset(wrappers)
+    with torch.no_grad():
+        logits = lm.forward_logits(params, batch0, cfg)
+        ref = mean_xent(torch, logits, batch0["labels"])
+        del logits
+    loss_launches = counts(wrappers)
+    want = {**none, "flash_prefill": cfg.n_layers}
+    if loss_launches != want:
+        fails.append(f"train: forward_logits launches {loss_launches}, "
+                     f"expected {want}")
+
+    [p.requires_grad_(True) for _, p in named_leaves(params)]
+    reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = lm.forward_train(params, batch0, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    fb = time.perf_counter() - t0
+    step0 = float(loss.detach())
+    rel = abs(step0 - ref) / abs(ref)
+    bad = unreal_grads(torch, params)
+    n_leaves = len(named_leaves(params))
+    log(f"  step 0 [{card}]: forward_train {step0:.6f} against "
+        f"forward_logits' cross-entropy {ref:.6f} (flash_prefill, "
+        f"{loss_launches['flash_prefill']} launches): {rel:.3e} relative "
+        f"(tol {TOL_BF16:g}); forward + backward {fb:.3f} s, launches "
+        f"{counts(wrappers)}; {n_leaves - len(bad)} of {n_leaves} gradient "
+        f"leaves finite and nonzero")
+    if not rel < TOL_BF16:
+        fails.append(f"train: step 0's loss {step0} against {ref}")
+    if counts(wrappers) != none:
+        fails.append(f"train: step 0 launched {counts(wrappers)}")
+    if bad:
+        fails.append(f"train: gradients not real at step 0: {bad}")
+    clear_grads(params)
+    detach = lambda f: lambda *a, **k: f(*a, **k).detach()  # noqa: E731
+    with swapped(L, "chunked_attention_train", detach):
+        lm.forward_train(params, batch0, cfg).backward()
+    planted = unreal_grads(torch, params)
+    log(f"  planted fault, the attention output detached before wo: "
+        f"gradients not real {planted} (must not be empty)")
+    if not planted:
+        fails.append("train: the detached attention output went unseen")
+    del params, loss, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec = {"tokens": [], "step_s": [], "launches": [], "profile": None}
+
+    class Recorded(SyntheticLM):
+        def next(self):
+            b = super().next()
+            rec["tokens"].append(b["tokens"].copy())
+            return b
+
+    def timed_steps(make):
+        def make_timed(*a, **k):
+            step = make(*a, **k)
+
+            def run(params, opt, batch):
+                torch.cuda.synchronize()
+                reset(wrappers)
+                prof = None
+                if len(rec["step_s"]) == 6:
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                t0 = time.perf_counter()
+                out = step(params, opt, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    rec["profile"] = (wall, prof.key_averages())
+                rec["step_s"].append(wall)
+                rec["launches"].append(counts(wrappers))
+                return out
+            return run
+        return make_timed
+
+    recorded = lambda cls: Recorded  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    with swapped(T, "SyntheticLM", recorded), \
+            swapped(T, "make_train_step", timed_steps):
+        losses = T.train_loop("llama3.2-3b", **kw)[2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = rec["step_s"]
+    rest = times[1:6] + times[7:]          # no warm-up, no profiler
+    steady = sorted(rest)[len(rest) // 2]
+    wall, evts = rec["profile"]
+    busy = sum(_dev_us(e) for e in evts) / 1e6
+    log(f"  train_loop llama3.2-3b, {steps} steps of {B} x {S} tokens "
+        f"[{card}]: losses {[round(x, 4) for x in losses]}; step times "
+        f"{[round(t, 3) for t in times]} s; steady step {steady:.3f} s = "
+        f"{B * S / steady:.0f} tokens/s; peak max_memory_allocated "
+        f"{peak:.2f} GiB")
+    log(f"  profiled step 6 [{card}]: wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s = {100 * busy / wall:.1f}% (idle "
+        f"{100 * (1 - busy / wall):.1f}%), "
+        f"{sum(e.count for e in evts if _dev_us(e))} kernel launches")
+    for e in sorted(evts, key=_dev_us, reverse=True)[:8]:
+        log(f"    device {_dev_us(e) / 1e3:9.3f} ms  calls {e.count:6d}  "
+            f"{e.key[:90]}")
+    if any(n != none for n in rec["launches"]):
+        fails.append(f"train: a training step launched a kernel: "
+                     f"{rec['launches']}")
+    if not losses[-1] < losses[0]:
+        fails.append(f"train: the loss did not fall: {losses}")
+    whole_tokens = rec["tokens"]
+
+    with tempfile.TemporaryDirectory() as d:
+        rec["tokens"] = []
+        t0 = time.perf_counter()
+        with swapped(T, "SyntheticLM", recorded):
+            p4, o4, first = T.train_loop("llama3.2-3b", **{
+                **kw, "steps": half}, ckpt_dir=d, ckpt_every=half)
+        part = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(d).iterdir()) / 2**30
+        # the saving run's state stays on the card (29.5 GiB) until the
+        # restored one (as much again) is compared with it
+        saved = [state_items(p4, o4)]
+        del p4, o4
+        diff = []
+
+        def restore_checked(restore):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step, params, opt, meta = restore(*a, **k)
+                torch.cuda.synchronize()
+                rec["restore_s"] = time.perf_counter() - t
+                got, want = state_items(params, opt), saved.pop()
+                diff.extend(n for n in want if n not in got
+                            or got[n].dtype != want[n].dtype
+                            or not torch.equal(got[n], want[n]))
+                del want
+                gc.collect()
+                torch.cuda.empty_cache()
+                return step, params, opt, meta
+            return call
+
+        rec["tokens"] = []
+        with swapped(T, "SyntheticLM", recorded), \
+                swapped(ckpt, "restore_checkpoint", restore_checked):
+            resumed = T.train_loop("llama3.2-3b", **kw, ckpt_dir=d,
+                                   resume=True)[2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_batch = bool(rec["tokens"]) and np.array_equal(
+        rec["tokens"][0], whole_tokens[half])
+    gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[half:]))
+    how = ("equal" if resumed == losses[half:] else
+           f"within {gap:.3e} relative" if gap < TOL_RESTART else
+           f"{gap:.3e} apart")
+    log(f"  restart [{card}]: {half} steps and a checkpoint ({size:.2f} GiB "
+        f"on disk) in {part:.1f} s, losses {[round(x, 4) for x in first]}; "
+        f"restored in {rec['restore_s']:.1f} s, {len(diff)} leaves "
+        f"differing from the saved state; first batch equal to batch "
+        f"{half}: {same_batch}; steps {half}-{steps - 1} {resumed} against "
+        f"{losses[half:]}: {how}")
+    if diff:
+        fails.append(f"train: restored state differs at {diff[:4]}")
+    if not same_batch:
+        fails.append(f"train: the resumed run did not start at batch "
+                     f"{half}")
+    if not (len(resumed) == steps - half and gap < TOL_RESTART):
+        fails.append(f"train: resumed losses {resumed} against "
+                     f"{losses[half:]}")
+    return loss_launches
+
+
+def state_items(params, opt):
+    """The checkpoint's keys to the tensors of a params tree and an
+    ``OptState``."""
+    out = {f"params/{n}": v.detach() for n, v in named_leaves(params)}
+    out.update({f"opt/.mu/{n}": v for n, v in named_leaves(opt.mu)})
+    out.update({f"opt/.nu/{n}": v for n, v in named_leaves(opt.nu)})
+    out["opt/.step"] = opt.step
+    return out
+
+
+def tiny_train_batch(torch, np, cfg, B=2, S=32):
+    rng = np.random.RandomState(11)
+    ints = lambda: torch.from_numpy(rng.randint(0, cfg.vocab,  # noqa
+                                                size=(B, S)))
+    emb = lambda n: torch.from_numpy((rng.randn(B, n, cfg.d_model)  # noqa
+                                      * 0.02).astype(np.float32)).bfloat16()
+    if cfg.enc_dec:
+        return {"frames": emb(24), "tgt_tokens": ints(), "tgt_labels": ints()}
+    batch = {"tokens": ints(), "labels": ints()}
+    if cfg.family == "vlm":
+        batch["patches"] = emb(8)
+    return batch
+
+
+def train_families(torch, np, card, fails):
+    """The ten tiny configs: one ``forward_train`` + backward on the card
+    and on the CPU from the same seeded params and batch (2 x 32 tokens in
+    attention and loss blocks of 16), no kernel launched on the card; the
+    MoE archs' card run held to the CPU run's router picks."""
+    import importlib
+    from repro_torch.models import lm
+    from repro_torch.models.routing_replay import SameRouting
+
+    wrappers = all_wrappers()
+    opts = {"attn_block": 16, "loss_chunk": 16}
+    for mod in TRAIN_ARCHS:
+        cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
+        init = lm.init_params(cfg, seed=11, device="cpu")
+        batch = tiny_train_batch(torch, np, cfg)
+        picks = SameRouting() if cfg.n_experts else None
+        out = {}
+        for dev in ("cpu", "cuda"):
+            if picks is not None:
+                (picks.record if dev == "cpu" else picks.replay)()
+            leaves = [(n, t.detach().to(dev).clone().requires_grad_(True))
+                      for n, t in named_leaves(init)]
+            reset(wrappers)
+            loss = lm.forward_train(_tree(leaves), _to(batch, dev), cfg,
+                                    opts=opts)
+            loss.backward()
+            if dev == "cuda" and any(counts(wrappers).values()):
+                fails.append(f"{cfg.name}: training launched "
+                             f"{counts(wrappers)}")
+            out[dev] = (float(loss.detach()),
+                        {n: c.grad.float().cpu() for n, c in leaves})
+        if picks is not None:
+            picks.restore()
+        (lc, g_cpu), (lg, g_card) = out["cpu"], out["cuda"]
+        worst = max((float((g_card[n] - g).abs().max())
+                     / max(float(g.abs().max()), 1e-30), n)
+                    for n, g in g_cpu.items())
+        log(f"  {cfg.name} card vs CPU [{card}]: loss {lg:.6f} / {lc:.6f} "
+            f"({abs(lg - lc) / abs(lc):.2e}), worst gradient leaf "
+            f"{worst[1]} {worst[0]:.2e} of its max (tol {TOL_BF16:g})")
+        if not abs(lg - lc) < TOL_BF16 * abs(lc):
+            fails.append(f"{cfg.name}: card loss {lg} against {lc}")
+        if not worst[0] < TOL_BF16:
+            fails.append(f"{cfg.name}: gradient {worst[1]} "
+                         f"{worst[0]:.3e} of its max")
+
+
+def _tree(items):
+    """A nested dict from (key path, value) pairs."""
+    out = {}
+    for name, v in items:
+        *path, last = name.split("/")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[last] = v
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2220,6 +2605,9 @@ def main() -> int:
     by_path.update(ssm_paths(torch, np, card))
     by_path.update(moe_vlm_paths(torch, np, card))
     by_path.update(mla_encdec_paths(torch, np, card))
+    log("phase 11: training (llama3.2-3b at full width and depth; the ten "
+        "tiny families on the card against the CPU)")
+    by_path.update(train_paths(torch, np, card))
     for rec in kernels:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in
                                    by_path.items() if n[rec["name"]]}

@@ -94,6 +94,22 @@ def function(lib: str, fn: str, argtypes: Sequence):
     return _FUNCS[key]
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise where a kernel would be launched under autograd.  The kernels
+    write through raw pointers, so their outputs carry no ``grad_fn``: every
+    weight before the call would silently get no gradient.  None has a
+    backward (nor has any of the reference's Pallas kernels); training
+    takes the plain PyTorch path (``train=True`` in the model functions)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and was given a "
+            f"tensor that requires grad; training takes the plain path "
+            f"(train=True), inference runs under torch.no_grad()")
+
+
 def launch(device, fn, *args):
     """Call ``fn(*args, stream)`` with ``device`` current and its current
     stream: the C functions launch on the runtime's current device.  The

@@ -86,6 +86,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
         return flash_prefill_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    build.refuse_autograd("flash_prefill", q, k, v)
     B, Sq, H, D = q.shape
     Sk, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     if (D, Dv) not in WIDTHS:

@@ -151,6 +151,7 @@ def _launch(fn, x, dt, Bc, Cc, A, D, h0, round_y):
     _check(x, dt, Bc, Cc, A, D, h0)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {x.device}")
+    build.refuse_autograd("mamba_scan", x, dt, Bc, Cc, A, D, h0)
     _cuda_checks(x, dt, Bc, Cc, A, D, h0)
     B, T, di = x.shape
     ds = A.shape[1]

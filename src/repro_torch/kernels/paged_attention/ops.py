@@ -165,6 +165,7 @@ def paged_decode(q, k_pool, v_pool, tables, lens, *, window: int = 0):
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, tables, lens,
                                   window=window)
+    build.refuse_autograd("paged_decode", q, k_pool, v_pool)
     if H // K > 8:
         raise ValueError(f"paged_decode kernel takes at most 8 query heads "
                          f"per KV head, not {H // K}")
@@ -204,6 +205,7 @@ def paged_append(k_pool, v_pool, k_new, v_new, block_ids, offsets):
     if k_pool.device.type == "cpu":
         return paged_append_plain(k_pool, v_pool, k_new, v_new, block_ids,
                                   offsets)
+    build.refuse_autograd("paged_append", k_pool, v_pool, k_new, v_new)
     _cuda_checks("paged_append",
                  (("k_pool", k_pool), ("v_pool", v_pool), ("k_new", k_new),
                   ("v_new", v_new)),

@@ -100,6 +100,7 @@ def wkv6(r, k, v, w, u, state0=None):
         return wkv6_plain(r, k, v, w, u, state0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
+    build.refuse_autograd("wkv6", r, k, v, w, u, state0)
     _cuda_checks(r, k, v, w, u, state0)
     B, T, H, dh = r.shape
     out = torch.empty(B, T, H, dh, dtype=F32, device=r.device)

@@ -1,1 +1,2 @@
-"""Launchers: the serving launcher (``serve``)."""
+"""Launchers: the serving launcher (``serve``) and the train loop
+(``train``)."""

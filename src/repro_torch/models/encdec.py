@@ -14,7 +14,9 @@ Attention goes through the port's kernels: the encoder's non-causal
 ``flash_prefill`` over the frames, the decoder's causal one over the
 target, and the cross-attention's non-causal one with St queries over Ss
 keys; a decode step runs ``paged_append`` + ``paged_decode`` over the
-self cache and ``paged_decode`` over the cross cache.  As in the
+self cache and ``paged_decode`` over the cross cache; ``forward_train``
+runs each attention through ``layers.chunked_attention_train`` instead
+(no kernel has a backward).  As in the
 reference, the decoder's residual adds are not pinned, the cross
 queries are roped at the target positions and the cross keys are not.
 Each layer loop is a Python loop over the stacked axis; the caches are
@@ -57,18 +59,24 @@ def _positions(n: int, device):
     return torch.arange(n, dtype=torch.int32, device=device)[None, :]
 
 
-def _run_encoder(params, frames, cfg):
-    """The encoder over the frames, non-causal; its output normed."""
+def _encoder_block(x, lp, cfg, positions, opts=None):
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, _, _ = L.gqa_attention_full(h, lp["attn"], cfg, positions,
+                                   causal=False, **lm._attn_kw(opts))
+    x = x + y
+    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.ffn_swiglu(h, lp["mlp"])
+
+
+def _run_encoder(params, frames, cfg, opts=None):
+    """The encoder over the frames, non-causal; its output normed.
+    ``opts``: ``lm.train_opts`` for the training route, None for
+    inference."""
     x = frames.to(BF16)
     positions = _positions(x.shape[1], x.device)
-    for i in range(cfg.n_enc_layers):
-        lp = lm._layer(params["enc_layers"], i)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, _, _ = L.gqa_attention_full(h, lp["attn"], cfg, positions,
-                                       causal=False)
-        x = x + y
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.ffn_swiglu(h, lp["mlp"])
+    block = lm._maybe_remat(_encoder_block, opts)
+    for lp in lm._layers(params["enc_layers"]):
+        x = block(x, lp, cfg, positions, opts)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -79,37 +87,45 @@ def _cross_kv(lp_cross, enc_out):
     return k.contiguous(), v.contiguous()
 
 
-def _decoder_block(x, lp, cfg, positions, enc_out):
+def _decoder_block(x, lp, cfg, positions, enc_out, opts=None):
     """Returns (x, (self k, self v, cross k, cross v))."""
+    kw = lm._attn_kw(opts)
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    y, sk, sv = L.gqa_attention_full(h, lp["attn"], cfg, positions)
+    y, sk, sv = L.gqa_attention_full(h, lp["attn"], cfg, positions, **kw)
     x = x + y
     h = L.rms_norm(x, lp["ln_cross"], cfg.norm_eps)
     ck, cv = _cross_kv(lp["cross"], enc_out)
     y, _, _ = L.gqa_attention_full(h, lp["cross"], cfg, positions,
-                                   causal=False, kv_override=(ck, cv))
+                                   causal=False, kv_override=(ck, cv), **kw)
     x = x + y
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.ffn_swiglu(h, lp["mlp"]), (sk, sv, ck, cv)
 
 
-def _run_decoder(params, batch, cfg):
+def _run_decoder(params, batch, cfg, opts=None):
     """The decoder over the target tokens; returns (x, [per-layer (sk,
-    sv, ck, cv)])."""
-    enc_out = _run_encoder(params, batch["frames"], cfg)
+    sv, ck, cv)]), or (x, None) in training."""
+    enc_out = _run_encoder(params, batch["frames"], cfg, opts)
     x = params["embed"][batch["tgt_tokens"]]
     positions = _positions(x.shape[1], x.device)
+    block = lm._maybe_remat(_decoder_block, opts)
     kvs = []
-    for i in range(cfg.n_dec_layers):
-        x, kv = _decoder_block(x, lm._layer(params["dec_layers"], i), cfg,
-                               positions, enc_out)
+    for lp in lm._layers(params["dec_layers"]):
+        x, kv = block(x, lp, cfg, positions, enc_out, opts)
         kvs.append(kv)
-    return x, kvs
+    return x, (None if opts is not None else kvs)
 
 
-def forward_train(params, batch, cfg):
-    raise NotImplementedError("encdec.forward_train comes with the "
-                              "training slice (ROADMAP Queue 1 item 7)")
+def forward_train(params, batch, cfg, *, opts=None):
+    """The training loss over ``tgt_labels`` (B, St): the encoder and the
+    decoder on the training route, then ``lm.chunked_xent``; the twin of
+    the reference's ``encdec.forward_train`` (``repro/models/encdec.py:
+    113``).  ``lm.forward_train`` sends an enc-dec config here."""
+    opts = lm.train_opts(opts)
+    x, _ = _run_decoder(params, batch, cfg, opts)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm.chunked_xent(params, x, batch["tgt_labels"], cfg,
+                           opts["loss_chunk"])
 
 
 def forward_logits(params, batch, cfg):
@@ -148,8 +164,7 @@ def decode_step(params, tokens, cache, pos, cfg):
     self cache written in place.  Returns (logits (B,1,V) f32, cache)."""
     x = params["embed"][tokens]
     pos = lm.decode_positions(pos, x, cache)
-    for i in range(cfg.n_dec_layers):
-        lp = lm._layer(params["dec_layers"], i)
+    for i, lp in enumerate(lm._layers(params["dec_layers"])):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, _, _ = L.gqa_attention_decode(h, lp["attn"], cfg, cache["k"][i],
                                          cache["v"][i], pos)

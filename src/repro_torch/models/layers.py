@@ -5,9 +5,12 @@ MoE of mixtral's and deepseek's layers and jamba's slots, rwkv6's group
 norm).
 
 Attention goes through the port's kernels: ``gqa_attention_full`` and
-``mla_attention_full`` call ``flash_prefill``; ``gqa_attention_decode_paged``
-and ``gqa_attention_decode`` (over a contiguous per-layer cache, read as
-one block per row) call ``paged_append`` then ``paged_decode``;
+``mla_attention_full`` call ``flash_prefill`` (with ``train=True`` they
+call ``chunked_attention_train`` instead, the plain blocked attention
+that the reference trains through: no kernel has a backward);
+``gqa_attention_decode_paged`` and ``gqa_attention_decode`` (over a
+contiguous per-layer cache, read as one block per row) call
+``paged_append`` then ``paged_decode``;
 ``cross_attention_decode`` calls ``paged_decode`` over the frozen cross
 cache.  MLA's decode is absorbed-matrix products over the latent cache, as
 the reference computes it outside any kernel.  Each kernel takes its
@@ -22,8 +25,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.flash_attention.ops import flash_prefill
+from repro_torch.kernels.flash_attention.ops import expand_kv, flash_prefill
 from repro_torch.kernels.paged_attention.ops import paged_append, paged_decode
 
 F32 = torch.float32
@@ -84,6 +88,101 @@ def paged_kv_update(k_pool, v_pool, k_new, v_new, block_ids, offsets):
                         v_new[:, 0].contiguous(), block_ids, offsets)
 
 
+# ---------------------------------------------------------------------------
+# training: blocked attention and the chunked scan, under autograd
+# ---------------------------------------------------------------------------
+def _pick_block(S: int, target: int) -> int:
+    if S <= target:
+        return S
+    b = target
+    while S % b:
+        b -= 1
+    return b
+
+
+def _attn_q_block(q, k, v, i, qb, kb, causal, window):
+    """Query block i over every key block (mode="full": each pair, masked):
+    the online softmax of the reference's ``_chunked_attention_bwd_safe``.
+    Scores are bf16 products summed in f32; m, l and acc are f32; p is
+    rounded to v's type before P.V; ``torch.minimum`` / ``maximum`` split
+    the gradient at a tie as ``jnp.minimum`` / ``maximum`` do.  Returns
+    (B, H, qb, Dv) f32."""
+    B, _, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    dev = q.device
+    qi = q[:, i * qb:(i + 1) * qb].float()
+    qpos = i * qb + torch.arange(qb, device=dev)
+    m = torch.full((B, H, qb), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros(B, H, qb, dtype=F32, device=dev)
+    acc = torch.zeros(B, H, qb, Dv, dtype=F32, device=dev)
+    zero = torch.zeros((), dtype=F32, device=dev)
+    for j in range(Sk // kb):
+        kj = k[:, j * kb:(j + 1) * kb].float()
+        vj = v[:, j * kb:(j + 1) * kb]
+        s = torch.einsum("bqhd,bshd->bhqs", qi, kj) * (1.0 / math.sqrt(D))
+        kpos = j * kb + torch.arange(kb, device=dev)
+        msk = torch.ones(qb, kb, dtype=torch.bool, device=dev)
+        if causal:
+            msk &= kpos[None, :] <= qpos[:, None]
+        if window:
+            msk &= qpos[:, None] - kpos[None, :] < window
+        s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        # guard all-masked rows (m_new == NEG_INF) against inf - inf
+        alpha = torch.exp(torch.minimum(m - m_new, zero))
+        p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhqs,bshd->bhqd", p.to(v.dtype).float(),
+                          vj.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def chunked_attention_train(q, k, v, *, causal: bool = True,
+                            window: int = 0, q_block: int = 512,
+                            kv_block: int = 512):
+    """The training attention, twin of the reference's
+    ``_chunked_attention_bwd_safe`` (``repro/models/layers.py:244``): a
+    Python loop over query blocks, each under ``torch.utils.checkpoint`` so
+    the backward recomputes its scores instead of keeping (Sq, Sk) of
+    them.  q (B, Sq, H, D); k, v (B, Sk, H, D|Dv), already expanded to H
+    heads.  Returns (B, Sq, H, Dv) in q's type."""
+    B, Sq, H, D = q.shape
+    if k.shape[2] != H:
+        raise ValueError("expand_kv before chunked_attention_train")
+    qb = _pick_block(Sq, q_block)
+    kb = _pick_block(k.shape[1], kv_block)
+    outs = [checkpoint(_attn_q_block, q, k, v, i, qb, kb, causal, window,
+                       use_reentrant=False) for i in range(Sq // qb)]
+    return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
+
+
+def seq_scan(step, carry0, xs, *, chunk: int = 64):
+    """Twin of the reference's ``seq_scan`` (``repro/models/layers.py:395``):
+    ``carry, y = step(carry, x_t)`` over the leading axis of the tuple
+    ``xs``, ys stacked.  Where T is a multiple of ``chunk`` above it, each
+    chunk of steps runs under ``torch.utils.checkpoint``, so the backward
+    keeps the carry at chunk edges only; otherwise a plain loop."""
+    T = xs[0].shape[0]
+
+    def run(c, part):
+        ys = []
+        for t in range(part[0].shape[0]):
+            c, y = step(c, tuple(a[t] for a in part))
+            ys.append(y)
+        return c, torch.stack(ys)
+
+    if T <= chunk or T % chunk:
+        return run(carry0, xs)
+    c, ys = carry0, []
+    for s in range(0, T, chunk):
+        c, y = checkpoint(run, c, tuple(a[s:s + chunk] for a in xs),
+                          use_reentrant=False)
+        ys.append(y)
+    return c, torch.cat(ys)
+
+
 def gqa_q(x, p, cfg, positions, *, qk_norm: bool = True):
     """The query half of ``gqa_qkv``: q (B,S,H,D) projected, normed where
     ``cfg.qk_norm`` (and ``qk_norm``), roped at ``positions``; contiguous."""
@@ -104,13 +203,27 @@ def gqa_qkv(x, p, cfg, positions):
     return gqa_q(x, p, cfg, positions), k.contiguous(), v.contiguous()
 
 
+def _attend(q, k, v, *, causal, train, attn_block, window=0):
+    """Prefill through ``flash_prefill``, or with ``train`` the blocked
+    training attention over ``expand_kv``'d K/V, as the reference's
+    ``bwd_safe`` route expands them."""
+    if not train:
+        return flash_prefill(q, k, v, causal=causal, window=window)
+    H = q.shape[2]
+    return chunked_attention_train(q, expand_kv(k, H), expand_kv(v, H),
+                                   causal=causal, window=window,
+                                   q_block=attn_block, kv_block=attn_block)
+
+
 def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
-                       kv_override=None):
-    """Full-sequence attention (prefill) through the flash kernel.
-    ``kv_override`` (k, v), each (B, Sk, K, dh): a cross-attention's keys
-    and values, taken as they are (no rope), while q is roped at
-    ``positions``, as the reference does; the projections it replaces are
-    not computed.  Returns (y, k, v)."""
+                       kv_override=None, train: bool = False,
+                       attn_block: int = 512):
+    """Full-sequence attention: prefill through the flash kernel, or with
+    ``train`` through ``chunked_attention_train`` (blocks of
+    ``attn_block``).  ``kv_override`` (k, v), each (B, Sk, K, dh): a
+    cross-attention's keys and values, taken as they are (no rope), while
+    q is roped at ``positions``, as the reference does; the projections it
+    replaces are not computed.  Returns (y, k, v)."""
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit soft-capping is not "
                                   "ported: the flash kernel has no cap")
@@ -118,7 +231,8 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
         q, k, v = gqa_qkv(x, p, cfg, positions)
     else:
         q, (k, v) = gqa_q(x, p, cfg, positions), kv_override
-    y = flash_prefill(q, k, v, causal=causal, window=cfg.sliding_window)
+    y = _attend(q, k, v, causal=causal, train=train,
+                attn_block=attn_block, window=cfg.sliding_window)
     return torch.einsum("bshx,hxd->bsd", y, p["wo"]), k, v
 
 
@@ -206,11 +320,13 @@ def _mla_latent(x, p, cfg, positions):
     return ckv, k_rope
 
 
-def mla_attention_full(x, p, cfg, positions):
+def mla_attention_full(x, p, cfg, positions, *, train: bool = False,
+                       attn_block: int = 512):
     """Prefill MLA: the latent expanded to per-head keys and values, k's
     rope part shared by the H heads, causal attention through
-    ``flash_prefill`` at query-key width nope + rope and value width
-    v_head_dim.  Returns (y, ckv (B, S, r), k_rope (B, S, rope))."""
+    ``flash_prefill`` (with ``train``, ``chunked_attention_train``) at
+    query-key width nope + rope and value width v_head_dim.  Returns (y,
+    ckv (B, S, r), k_rope (B, S, rope))."""
     B, S, _ = x.shape
     H, nope = cfg.n_heads, cfg.qk_nope_head_dim
     q_nope, q_rope = _mla_q(x, p, cfg, positions)
@@ -220,7 +336,7 @@ def mla_attention_full(x, p, cfg, positions):
         B, S, H, cfg.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = kv[..., nope:].contiguous()
-    y = flash_prefill(q, k, v, causal=True)
+    y = _attend(q, k, v, causal=True, train=train, attn_block=attn_block)
     return torch.einsum("bshv,hvd->bsd", y, p["wo"]), ckv, k_rope
 
 

@@ -1,9 +1,10 @@
-"""Decoder-only LM in PyTorch: init, the JAX parameter bridge, prefill,
-decode and full-sequence logits for the dense and moe (uniform GQA, or
-deepseek-v2's MLA), vlm (uniform GQA after a patch stream), ssm (rwkv6)
-and hybrid (jamba superblocks) families; the encoder-decoder (seamless,
-family "audio") lives in ``repro_torch.models.encdec``, and the entry
-points here send it there, as the reference's do.
+"""Decoder-only LM in PyTorch: init, the JAX parameter bridge, the
+training loss, prefill, decode and full-sequence logits for the dense and
+moe (uniform GQA, or deepseek-v2's MLA), vlm (uniform GQA after a patch
+stream), ssm (rwkv6) and hybrid (jamba superblocks) families; the
+encoder-decoder (seamless, family "audio") lives in
+``repro_torch.models.encdec``, and the entry points here send it there,
+as the reference's do.
 
 The twin of ``repro.models.lm``.  Params are a plain dict with the
 reference tree's keys and shapes (bf16, except mamba's f32 ``A_log``;
@@ -24,7 +25,12 @@ A vlm batch carries ``patches`` (B, P, d_model), pre-projected embeddings
 put before the token embeddings; positions run 0..P+S-1, so a decode step
 after it takes positions counted with P.
 
-The reference's layer ``scan`` is a Python loop over the stacked axis.
+The reference's layer ``scan`` is a Python loop over the stacked axis,
+whose layers are split off with ``unbind`` (``_layers``).
+``forward_train`` is the training loss under autograd: attention through
+``layers.chunked_attention_train``, the recurrences through
+``layers.seq_scan``, the loss through ``chunked_xent``; it reaches no
+kernel, as the reference's training path reaches no Pallas kernel.
 Caches: dense / moe / vlm {k, v} (L, B, max_len, K, dh); MLA {ckv (L, B,
 max_len, kv_lora_rank), krope (L, B, max_len, qk_rope_head_dim)}; ssm
 {wkv, shift_tm, shift_cm}; hybrid {k, v} per superblock plus {conv, ssm}
@@ -39,6 +45,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -70,17 +77,22 @@ def check_family(cfg: ModelConfig) -> None:
 class _Init:
     """The reference's init distributions from a ``torch.Generator``:
     normal * scale in bf16, drawn in slices of at most 2**26 elements so a
-    stacked expert weight never has a full-size f32 temporary."""
+    stacked expert weight never has a full-size f32 temporary.  On the
+    ``meta`` device nothing is drawn or allocated (``abstract_params``)."""
 
     CHUNK = 1 << 26
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(seed)
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(seed)
 
     def dense(self, *shape, scale: float = 0.02):
         out = torch.empty(shape, dtype=BF16, device=self.device)
+        if self.gen is None:
+            return out
         flat = out.view(-1, shape[-1])
         rows = max(1, self.CHUNK // shape[-1])
         for i in range(0, flat.shape[0], rows):
@@ -228,6 +240,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The params' tree of shapes and types with nothing allocated (meta
+    tensors): what a checkpoint restore rebuilds, as the reference's
+    ``abstract_params`` (``jax.eval_shape`` of ``init_params``)."""
+    return init_params(cfg, 0, device="meta")
+
+
 def params_from_jax(tree, device="cuda"):
     """The reference's ``lm.init_params`` tree, as numpy arrays
     (``np.asarray`` on each leaf), to the port's params with the same keys
@@ -254,6 +273,18 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _layers(tree):
+    """Every layer of a stacked param tree, split with ``unbind`` (views).
+    Under autograd a stacked leaf's gradient is then one stack of its
+    layers' gradients; indexing layer by layer (``_layer``) would add a
+    full-size zero tensor per layer."""
+    if not isinstance(tree, dict):
+        return tree.unbind(0)
+    per = {k: _layers(v) for k, v in tree.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 # ===========================================================================
 # embedding / logits
 # ===========================================================================
@@ -266,6 +297,68 @@ def unembed(params, x, cfg):
     reference's ``preferred_element_type=F32`` accumulates in f32."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return torch.einsum("bsd,dv->bsv", x.float(), w.float())
+
+
+def _xent_chunk(x, labels, w):
+    """One chunk's (sum of logsumexp - logit[label] over labels >= 0,
+    their count), both f32."""
+    logits = torch.einsum("bsd,dv->bsv", x.float(), w.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = labels.clamp_min(0).long()
+    lab = logits.gather(-1, safe[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((lse - lab) * valid).sum(), valid.sum()
+
+
+def chunked_xent(params, x, labels, cfg, loss_chunk: int = 512):
+    """Chunked softmax cross-entropy, labels -100 masked: the twin of the
+    reference's ``chunked_xent`` (``repro/models/lm.py:311``).  Each chunk
+    of ``loss_chunk`` positions runs under ``torch.utils.checkpoint``, so
+    its f32 (B, c, V) logits never live whole in the backward; the sums
+    are carried chunk by chunk, then divided by max(count, 1)."""
+    S = x.shape[1]
+    c = L._pick_block(S, loss_chunk)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    tot = cnt = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(S // c):
+        part, n = checkpoint(_xent_chunk, x[:, i * c:(i + 1) * c],
+                             labels[:, i * c:(i + 1) * c], w,
+                             use_reentrant=False)
+        tot, cnt = tot + part, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+# the keys of the reference's ``env.opts`` that its training path reads on
+# one device ("sp" and "moe_impl" change nothing without a mesh)
+TRAIN_OPTS = {"attn_block": 512, "loss_chunk": 512, "remat": False,
+              "remat_policy": None}
+
+
+def train_opts(opts=None) -> Dict[str, Any]:
+    out = dict(TRAIN_OPTS)
+    unknown = set(opts or {}) - set(out)
+    if unknown:
+        raise ValueError(f"forward_train takes the options {sorted(out)}, "
+                         f"not {sorted(unknown)}")
+    out.update(opts or {})
+    if out["remat_policy"] is not None:
+        raise NotImplementedError(f"remat_policy {out['remat_policy']!r}: "
+                                  f"only whole-layer remat is ported")
+    return out
+
+
+def _maybe_remat(fn, opts):
+    """``fn`` under ``torch.utils.checkpoint`` where ``opts["remat"]`` (the
+    reference's ``_maybe_remat`` without a policy)."""
+    if not (opts and opts["remat"]):
+        return fn
+    return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def _attn_kw(opts):
+    """The attention functions' training keywords (none for inference)."""
+    return {} if opts is None else {"train": True,
+                                    "attn_block": opts["attn_block"]}
 
 
 # ===========================================================================
@@ -282,25 +375,29 @@ def _mlp(h, p, cfg):
     return L.ffn_swiglu(h, p)
 
 
-def _uniform_block(x, lp, cfg, positions):
+def _uniform_block(x, lp, cfg, positions, opts=None):
     """Returns (x, the layer's cache entries): (k, v), or MLA's (ckv,
-    k_rope)."""
+    k_rope).  ``opts``: ``train_opts`` for the training route, None for
+    inference."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn = L.mla_attention_full if cfg.use_mla else L.gqa_attention_full
-    y, c1, c2 = attn(h, lp["attn"], cfg, positions)
+    y, c1, c2 = attn(h, lp["attn"], cfg, positions, **_attn_kw(opts))
     x = L.pin_bf16(x + L.pin_bf16(y))
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     y = _mlp(h, lp["mlp"], cfg)
     return L.pin_bf16(x + L.pin_bf16(y)), (c1, c2)
 
 
-def _run_uniform(params, x, cfg, positions):
+def _run_uniform(params, x, cfg, positions, opts=None):
+    """Returns (x, the stacked cache entries), or (x, None) in training."""
+    block = _maybe_remat(_uniform_block, opts)
     c1s, c2s = [], []
-    for i in range(cfg.n_layers):
-        x, (c1, c2) = _uniform_block(x, _layer(params["layers"], i), cfg,
-                                     positions)
+    for lp in _layers(params["layers"]):
+        x, (c1, c2) = block(x, lp, cfg, positions, opts)
         c1s.append(c1)
         c2s.append(c2)
+    if opts is not None:
+        return x, None
     return x, (torch.stack(c1s), torch.stack(c2s))
 
 
@@ -333,10 +430,11 @@ def _uniform_decode_block_paged(x, lp, kp, vp, tables, pos, block_ids,
 
 # --- jamba superblocks -----------------------------------------------------
 def _jamba_superblock(x, sb, cfg, positions, *, states=None, collect=False,
-                      pos=None):
+                      pos=None, opts=None):
     """One superblock (attn_period slots).  states: this superblock's
     decode states (``k``, ``v`` caches updated in place, ``conv``,
-    ``ssm``) or None.  Returns (x, (k, v) or None, {conv, ssm} or None).
+    ``ssm``) or None; ``opts``: ``train_opts`` for the training route.
+    Returns (x, (k, v) or None, {conv, ssm} or None).
 
     The reference's quirks are mirrored: the attention sits at slot
     ``per // 2`` and ``layer_is_moe`` is asked with the slot, not the
@@ -346,11 +444,15 @@ def _jamba_superblock(x, sb, cfg, positions, *, states=None, collect=False,
     mi = ji = fi = 0
     conv, ssm = [], []
     kv_out = None
+    mamba, moe, ffn = (_layers(sb[k]) for k in ("mamba", "moe", "ffn"))
+    mamba_ln, moe_ln, ffn_ln = (sb[k].unbind(0)
+                                for k in ("mamba_ln", "moe_ln", "ffn_ln"))
     for slot in range(per):
         if slot == per // 2:
             h = L.rms_norm(x, sb["attn_ln"], eps)
             if states is None:
-                y, k, v = L.gqa_attention_full(h, sb["attn"], cfg, positions)
+                y, k, v = L.gqa_attention_full(h, sb["attn"], cfg, positions,
+                                               **_attn_kw(opts))
                 if collect:
                     kv_out = (k, v)
             else:
@@ -358,10 +460,10 @@ def _jamba_superblock(x, sb, cfg, positions, *, states=None, collect=False,
                     h, sb["attn"], cfg, states["k"], states["v"], pos)
                 kv_out = (kc, vc)
         else:
-            lp = _layer(sb["mamba"], mi)
-            h = L.rms_norm(x, sb["mamba_ln"][mi], eps)
+            lp = mamba[mi]
+            h = L.rms_norm(x, mamba_ln[mi], eps)
             if states is None and not collect:
-                y = M.mamba_layer(h, lp, cfg)
+                y = M.mamba_layer(h, lp, cfg, train=opts is not None)
             else:
                 y, conv_s, ssm_s = M.mamba_layer(
                     h, lp, cfg, return_state=True,
@@ -372,12 +474,12 @@ def _jamba_superblock(x, sb, cfg, positions, *, states=None, collect=False,
             mi += 1
         x = L.pin_bf16(x + y)
         if cfg.layer_is_moe(slot):
-            h = L.rms_norm(x, sb["moe_ln"][ji], eps)
-            y = L.moe_block(h, _layer(sb["moe"], ji), cfg)
+            h = L.rms_norm(x, moe_ln[ji], eps)
+            y = L.moe_block(h, moe[ji], cfg)
             ji += 1
         else:
-            h = L.rms_norm(x, sb["ffn_ln"][fi], eps)
-            y = L.ffn_swiglu(h, _layer(sb["ffn"], fi))
+            h = L.rms_norm(x, ffn_ln[fi], eps)
+            y = L.ffn_swiglu(h, ffn[fi])
             fi += 1
         x = L.pin_bf16(x + y)
     new_states = ({"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
@@ -385,14 +487,13 @@ def _jamba_superblock(x, sb, cfg, positions, *, states=None, collect=False,
     return x, kv_out, new_states
 
 
-def _run_jamba(params, x, cfg, positions, *, collect=False):
+def _run_jamba(params, x, cfg, positions, *, collect=False, opts=None):
     """Returns (x, None) or, with ``collect``, (x, ((k, v), {conv, ssm}))
     stacked over superblocks."""
-    nsb = cfg.n_layers // cfg.attn_period
+    block = _maybe_remat(_jamba_superblock, opts)
     ks, vs, convs, ssms = [], [], [], []
-    for s in range(nsb):
-        x, kv, st = _jamba_superblock(x, _layer(params["superblocks"], s),
-                                      cfg, positions, collect=collect)
+    for sb in _layers(params["superblocks"]):
+        x, kv, st = block(x, sb, cfg, positions, collect=collect, opts=opts)
         if collect:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -405,12 +506,12 @@ def _run_jamba(params, x, cfg, positions, *, collect=False):
 
 
 # --- rwkv ------------------------------------------------------------------
-def _rwkv_block(x, lp, cfg, *, collect=False):
+def _rwkv_block(x, lp, cfg, *, collect=False, opts=None):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if collect:
         y, s_tm, wkv = R.rwkv6_time_mix(h, lp["tm"], cfg, return_state=True)
     else:
-        y = R.rwkv6_time_mix(h, lp["tm"], cfg)
+        y = R.rwkv6_time_mix(h, lp["tm"], cfg, train=opts is not None)
     x = x + y
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if collect:
@@ -421,13 +522,13 @@ def _rwkv_block(x, lp, cfg, *, collect=False):
     return x, ((wkv, s_tm, s_cm) if collect else None)
 
 
-def _run_rwkv(params, x, cfg, *, collect=False):
+def _run_rwkv(params, x, cfg, *, collect=False, opts=None):
     """Returns (x, None) or, with ``collect``, (x, (wkv, shift_tm,
     shift_cm)) stacked over layers."""
+    block = _maybe_remat(_rwkv_block, opts)
     sts = []
-    for i in range(cfg.n_layers):
-        x, st = _rwkv_block(x, _layer(params["layers"], i), cfg,
-                            collect=collect)
+    for lp in _layers(params["layers"]):
+        x, st = block(x, lp, cfg, collect=collect, opts=opts)
         sts.append(st)
     if not collect:
         return x, None
@@ -451,21 +552,53 @@ def _rwkv_decode_block(x, lp, st, cfg):
 # public entry points
 # ===========================================================================
 def _assemble_inputs(params, batch, cfg):
-    """Returns (x, positions), positions counted from 0.  A vlm batch's
-    ``patches`` (B, P, d_model) come first, in bf16; a vlm batch without
-    them raises ``KeyError``, as the reference's does (text-only serving
-    passes an empty stream)."""
+    """Returns (x, labels, positions), positions counted from 0; labels
+    are ``batch["labels"]`` (None where absent).  A vlm batch's
+    ``patches`` (B, P, d_model) come first, in bf16, their labels -100; a
+    vlm batch without them raises ``KeyError``, as the reference's does
+    (text-only serving passes an empty stream)."""
     x = embed_tokens(params, batch["tokens"], cfg)
+    labels = batch.get("labels")
     if cfg.family == "vlm":
-        x = torch.cat([batch["patches"].to(BF16), x], dim=1)
+        patches = batch["patches"]
+        x = torch.cat([patches.to(BF16), x], dim=1)
+        if labels is not None:
+            labels = torch.cat([torch.full(patches.shape[:2], -100,
+                                           dtype=labels.dtype,
+                                           device=labels.device), labels],
+                               dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None, :]
-    return x, positions
+    return x, labels, positions
 
 
 def _final(params, x, cfg):
     return unembed(params, L.rms_norm(x, params["final_norm"], cfg.norm_eps),
                    cfg)
+
+
+def forward_train(params, batch, cfg: ModelConfig, *, opts=None):
+    """The training loss: the mean cross-entropy of ``batch["labels"]``
+    (B, S) over the causal forward, a scalar f32 tensor under autograd
+    (enc-dec: ``frames``, ``tgt_tokens``, ``tgt_labels``).  The twin of the
+    reference's ``forward_train`` (``repro/models/lm.py:595``) with no
+    mesh; ``opts`` takes ``TRAIN_OPTS``' keys (``attn_block``,
+    ``loss_chunk``, ``remat``).  No kernel is launched: the kernels have
+    no backward."""
+    check_family(cfg)
+    opts = train_opts(opts)
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        return encdec.forward_train(params, batch, cfg, opts=opts)
+    x, labels, positions = _assemble_inputs(params, batch, cfg)
+    if cfg.family == "ssm":
+        x, _ = _run_rwkv(params, x, cfg, opts=opts)
+    elif cfg.family == "hybrid":
+        x, _ = _run_jamba(params, x, cfg, positions, opts=opts)
+    else:
+        x, _ = _run_uniform(params, x, cfg, positions, opts)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return chunked_xent(params, x, labels, cfg, opts["loss_chunk"])
 
 
 def forward_logits(params, batch, cfg: ModelConfig):
@@ -476,7 +609,7 @@ def forward_logits(params, batch, cfg: ModelConfig):
     if cfg.enc_dec:
         from repro_torch.models import encdec
         return encdec.forward_logits(params, batch, cfg)
-    x, positions = _assemble_inputs(params, batch, cfg)
+    x, _, positions = _assemble_inputs(params, batch, cfg)
     if cfg.family == "ssm":
         x, _ = _run_rwkv(params, x, cfg)
     elif cfg.family == "hybrid":
@@ -536,7 +669,7 @@ def prefill(params, batch, cfg: ModelConfig,
     if cfg.enc_dec:
         from repro_torch.models import encdec
         return encdec.prefill(params, batch, cfg, max_len)
-    x, positions = _assemble_inputs(params, batch, cfg)
+    x, _, positions = _assemble_inputs(params, batch, cfg)
     max_len = max_len or x.shape[1]
     if cfg.family == "ssm":
         x, (wkv, s_tm, s_cm) = _run_rwkv(params, x, cfg, collect=True)

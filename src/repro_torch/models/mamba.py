@@ -4,8 +4,10 @@
 Both of the reference's scans go through the ``mamba_scan`` kernel: the
 prefill scan ``_ssm_scan`` (zero state in, each step's h.C rounded to
 bf16) and the decode branch of ``mamba_layer`` (the carried state in, no
-rounding).  The causal depthwise conv stays plain PyTorch (an f32 sum of
-d_conv shifted products, cast back).
+rounding).  With ``train=True`` the prefill scan runs through
+``layers.seq_scan`` under autograd instead, as the reference trains.
+The causal depthwise conv stays plain PyTorch (an f32 sum of d_conv
+shifted products, cast back).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.models.layers import seq_scan
 
 F32 = torch.float32
 
@@ -37,8 +40,32 @@ def _ssm_scan(x, dt, Bc, Cc, A, D):
     return y.to(x.dtype), h_T
 
 
+def _ssm_scan_train(x, dt, Bc, Cc, A, D):
+    """The training route of ``_ssm_scan``: the reference's step
+    (``repro/models/mamba.py:35-41``) through ``seq_scan``, with dt*x
+    formed in f32 as ``mamba_scan_plain`` forms it (ROADMAP Queue 3, held
+    differences) and each step's h.C rounded to bf16.  Returns (y in x's
+    type, h_T (B, di, ds) f32)."""
+    Af = A.float()[None]
+
+    def step(h, inp):
+        xt, dtt, bt, ct = inp
+        dtf = dtt.float()
+        h = torch.exp(dtf[:, :, None] * Af) * h \
+            + (dtf * xt.float())[:, :, None] * bt.float()[:, None, :]
+        return h, torch.einsum("bis,bs->bi", h, ct.float()).to(
+            torch.bfloat16)
+
+    B, _, di = x.shape
+    h0 = torch.zeros(B, di, A.shape[1], dtype=F32, device=x.device)
+    h_T, ys = seq_scan(step, h0, tuple(t.transpose(0, 1)
+                                       for t in (x, dt, Bc, Cc)))
+    y = ys.transpose(0, 1).float() + x.float() * D.float()
+    return y.to(x.dtype), h_T
+
+
 def mamba_layer(x, p, cfg, *, conv_state=None, ssm_state=None,
-                return_state: bool = False):
+                return_state: bool = False, train: bool = False):
     """Full-sequence mamba mixer.  x: (B,S,d) -> (B,S,d).
 
     With ``return_state`` also returns (conv_state, ssm_state) for the
@@ -71,7 +98,8 @@ def mamba_layer(x, p, cfg, *, conv_state=None, ssm_state=None,
                             ssm_state.float())
         y = y.to(x.dtype)
     else:
-        y, h_T = _ssm_scan(xc, dt, Bc, Cc, A, p["D"])
+        scan = _ssm_scan_train if train else _ssm_scan
+        y, h_T = scan(xc, dt, Bc, Cc, A, p["D"])
 
     y = (y.float() * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"]

@@ -682,3 +682,116 @@ def test_mla_and_encdec_on_card_match_cpu(cuda, mod, monkeypatch):
     for key in ca:
         top = max(1.0, float(ca[key].abs().max()))
         assert float((ca[key] - cb[key]).abs().max()) < TOL * top, key
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_tensors_that_require_grad(cuda):
+    """A kernel's output carries no ``grad_fn``: launched on a CUDA input
+    that requires grad under grad mode, each wrapper raises, launches
+    nothing and does not fall back; under ``torch.no_grad()`` the same call
+    launches."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    bf = lambda *s: torch.randn(*s, generator=g, device=cuda).to(  # noqa
+        torch.bfloat16)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=cuda)  # noqa
+    q, k, v = bf(1, 64, 4, 64), bf(1, 64, 2, 64), bf(1, 64, 2, 64)
+    kp, vp = bf(4, 16, 2, 64), bf(4, 16, 2, 64)
+    r, kk, vv = bf(1, 32, 2, 64), bf(1, 32, 2, 64), bf(1, 32, 2, 64)
+    w = torch.rand(1, 32, 2, 64, generator=g, device=cuda)
+    u = torch.randn(2, 64, generator=g, device=cuda)
+    x, dt, Bc, Cc = bf(1, 32, 128), bf(1, 32, 128), bf(1, 32, 8), \
+        bf(1, 32, 8)
+    A = -torch.rand(128, 8, generator=g, device=cuda)
+    D = torch.ones(128, device=cuda)
+    calls = [
+        (F.flash_prefill, q, lambda t: F.flash_prefill(t, k, v)),
+        (P.paged_decode, q[0, :2],
+         lambda t: P.paged_decode(t, kp, vp, i32([0], [1]), i32(16, 9))),
+        (P.paged_append, kp[0, :2],
+         lambda t: P.paged_append(kp, vp, t, t, i32(0, 1), i32(3, 4))),
+        (R.wkv6, r, lambda t: R.wkv6(t, kk, vv, w, u)),
+        (M.mamba_scan, x, lambda t: M.mamba_scan(t, dt, Bc, Cc, A, D)),
+    ]
+    for wrapper, t, call in calls:
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(t.clone().requires_grad_(True))
+        assert wrapper.launches == before
+        with torch.no_grad():
+            call(t.clone().requires_grad_(True))
+        assert wrapper.launches == before + 1
+
+
+TRAIN_ARCHS = ["jamba_v0_1_52b", "deepseek_v2_236b", "mixtral_8x22b",
+               "command_r_35b", "mistral_nemo_12b", "qwen3_32b",
+               "llama3_2_3b", "llava_next_34b", "rwkv6_7b",
+               "seamless_m4t_large_v2"]
+
+
+def _train_batch(cfg, B=2, S=32):
+    import numpy as np
+    rng = np.random.RandomState(20)
+    ints = lambda: torch.from_numpy(rng.randint(0, cfg.vocab,  # noqa
+                                                size=(B, S)))
+    emb = lambda n: torch.from_numpy((rng.randn(B, n, cfg.d_model)  # noqa
+                                      * 0.02).astype(np.float32)).bfloat16()
+    if cfg.enc_dec:
+        return {"frames": emb(24), "tgt_tokens": ints(), "tgt_labels": ints()}
+    batch = {"tokens": ints(), "labels": ints()}
+    if cfg.family == "vlm":
+        batch["patches"] = emb(8)
+    return batch
+
+
+def _loss_and_grads(lm, cfg, init, batch, dev):
+    """One ``forward_train`` + backward on ``dev`` from copies of
+    ``init``; (loss, {leaf path: grad on the CPU})."""
+    leaves = []
+
+    def copy(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: copy(v, f"{path}{k}/") for k, v in tree.items()}
+        t = tree.detach().to(dev).clone().requires_grad_(True)
+        leaves.append((path[:-1], t))
+        return t
+
+    params = copy(init)
+    loss = lm.forward_train(params, _to(batch, dev), cfg,
+                            opts={"attn_block": 16, "loss_chunk": 16})
+    loss.backward()
+    return float(loss.detach()), {n: t.grad.float().cpu() for n, t in leaves}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", TRAIN_ARCHS)
+def test_forward_train_on_card_matches_cpu(cuda, mod, monkeypatch):
+    """Each family's tiny config: ``forward_train`` + backward (2 x 32
+    tokens in attention and loss blocks of 16) on the card and on the CPU
+    from the same seeded params, launching no kernel on the card; the loss
+    within 2e-2 relative and every gradient leaf within 2e-2 of its
+    largest magnitude (rwkv6's and jamba's included: the same code on two
+    devices parts less than two frameworks do).  The card's MoE is held to
+    the CPU's router picks."""
+    import importlib
+
+    from repro_torch.models import lm
+    from repro_torch.models.routing_replay import SameRouting
+
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").tiny()
+    init = lm.init_params(cfg, seed=20, device="cpu")
+    batch = _train_batch(cfg)
+    picks = SameRouting(monkeypatch.setattr) if cfg.n_experts else None
+    if picks:
+        picks.record()
+    loss_c, grads_c = _loss_and_grads(lm, cfg, init, batch, "cpu")
+    if picks:
+        picks.replay()
+    wrappers = (F.flash_prefill, P.paged_decode, P.paged_append, R.wkv6,
+                M.mamba_scan)
+    before = [w.launches for w in wrappers]
+    loss_g, grads_g = _loss_and_grads(lm, cfg, init, batch, cuda)
+    assert [w.launches for w in wrappers] == before
+    assert abs(loss_g - loss_c) < TOL * abs(loss_c)
+    for name, g in grads_c.items():
+        top = max(float(g.abs().max()), 1e-30)
+        assert float((grads_g[name] - g).abs().max()) < TOL * top, name

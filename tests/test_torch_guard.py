@@ -174,3 +174,67 @@ def test_wrappers_raise_on_devices_they_do_not_take():
     q = torch.zeros(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_prefill(q, q, q)
+
+
+def test_wrappers_cpu_branch_stays_differentiable():
+    """On a CPU tensor each wrapper runs its plain version, which autograd
+    follows: a backward through it gives every input a finite gradient
+    (the training path may reach a wrapper on the CPU; on a card the
+    wrappers refuse tensors that require grad, tests/test_torch_cuda.py).
+    ``paged_append`` writes its pools in place, so they enter as products
+    of leaves."""
+    from repro_torch.kernels.flash_attention.ops import flash_prefill
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.paged_attention.ops import (paged_append,
+                                                         paged_decode)
+    from repro_torch.kernels.rwkv6.ops import wkv6
+
+    gen = torch.Generator().manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def leaf(*shape, dtype=torch.float32, scale=1.0):
+        x = torch.randn(*shape, generator=gen) * scale
+        return x.to(dtype).requires_grad_(True)
+
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    cases = []
+    q, k, v = leaf(1, 8, 4, 16, dtype=bf16), leaf(1, 8, 2, 16, dtype=bf16), \
+        leaf(1, 8, 2, 16, dtype=bf16)
+    cases.append(("flash_prefill", flash_prefill(q, k, v), (q, k, v)))
+    q, kp, vp = (leaf(2, 4, 16, dtype=bf16), leaf(3, 4, 2, 16, dtype=bf16),
+                 leaf(3, 4, 2, 16, dtype=bf16))
+    out = paged_decode(q, kp, vp, i32([0, 2], [1, 0]), i32(7, 3))
+    cases.append(("paged_decode", out, (q, kp, vp)))
+    kp, vp = leaf(3, 4, 2, 16), leaf(3, 4, 2, 16)
+    kn, vn = leaf(2, 2, 16), leaf(2, 2, 16)
+    ko, vo = paged_append(kp * 1, vp * 1, kn, vn, i32(1, 3), i32(2, 0))
+    cases.append(("paged_append", ko.sum() + vo.sum(), (kp, vp, kn)))
+    r, kk, vv = (leaf(1, 5, 2, 16, dtype=bf16) for _ in range(3))
+    w = torch.rand(1, 5, 2, 16, generator=gen).requires_grad_(True)
+    u, s0 = leaf(2, 16), leaf(1, 2, 16, 16, scale=0.1)
+    out, s_T = wkv6(r, kk, vv, w, u, s0)
+    cases.append(("wkv6", out.sum() + s_T.sum(), (r, kk, vv, w, u, s0)))
+    x, dt = leaf(1, 5, 8, dtype=bf16), leaf(1, 5, 8, dtype=bf16, scale=0.1)
+    Bc, Cc = leaf(1, 5, 4, dtype=bf16), leaf(1, 5, 4, dtype=bf16)
+    A, D, h0 = leaf(8, 4), leaf(8), leaf(1, 8, 4)
+    y, h_T = mamba_scan(x, dt, Bc, Cc, A, D, h0)
+    cases.append(("mamba_scan", y.sum() + h_T.sum(),
+                  (x, dt, Bc, Cc, A, D, h0)))
+    for name, out, inputs in cases:
+        out.float().sum().backward()
+        for i, t in enumerate(inputs):
+            assert t.grad is not None, f"{name}: input {i} has no gradient"
+            assert bool(t.grad.float().isfinite().all()), (name, i)
+            assert float(t.grad.float().abs().sum()) > 0, (name, i)
+
+
+def test_refuse_autograd_raises_only_under_grad_on_tensors_that_require_it():
+    """The check each wrapper makes before a CUDA launch (the launches
+    themselves are card tests)."""
+    from repro_torch.kernels import build
+    plain, leaf = torch.zeros(2), torch.zeros(2, requires_grad=True)
+    build.refuse_autograd("k", plain, None)
+    with pytest.raises(RuntimeError, match="no backward"):
+        build.refuse_autograd("k", plain, leaf * 2)
+    with torch.no_grad():
+        build.refuse_autograd("k", plain, leaf)

@@ -24,11 +24,12 @@ COPIES = (
     + [f"serving/frontend/{m}.py" for m in
        ("__init__", "clock", "driver", "proxy", "strategies", "tracker")]
     + [f"analysis/{m}.py" for m in
-       ("__init__", "cfg", "determinism", "lifecycle", "sagalint")])
+       ("__init__", "cfg", "determinism", "lifecycle", "sagalint")]
+    + ["train/__init__.py", "train/data.py"])
 
 
 def test_copy_list_covers_the_runtime_import_closure():
-    assert len(COPIES) == 54
+    assert len(COPIES) == 56
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -7,9 +7,10 @@ cross-attention agree at tiny width; ``lm.prefill``, ``forward_logits``
 and four ``decode_step``s agree for ``deepseek-v2-tiny`` (held to the
 reference's router picks, ``torch_routing.SameRouting``) and
 ``seamless-tiny`` (16 and 24 frames: prefill's last logits, every cache
-entry, the decode steps' logits and self caches).  Tolerance: the lm
-tests' bf16 2e-2, relative to the largest magnitude where that passes 1
-(tests/test_kernels.py)."""
+entry, the decode steps' logits and self caches); their training loss
+and gradients are held in tests/test_torch_forward_train.py.  Tolerance:
+the lm tests' bf16 2e-2, relative to the largest magnitude where that
+passes 1 (tests/test_kernels.py)."""
 import functools
 
 import jax
@@ -328,8 +329,3 @@ def test_encdec_decode_steps_match_jax(n_frames):
             assert _close(cache_t[key], cache_j[key]), (step, key)
     assert torch.equal(cache_t["cross_k"], cross[0])
     assert torch.equal(cache_t["cross_v"], cross[1])
-
-
-def test_encdec_forward_train_waits_for_the_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tencdec.forward_train({}, {}, tsm.tiny())

@@ -5,8 +5,9 @@ same ten architecture modules at their tiny configs: ``test_logits_shape``
 ``decode_step`` equals ``forward_logits`` on S, within the reference's
 1e-2 and 2e-2).  The port runs alone on the reference's params
 (``jax.random.PRNGKey(0)``, carried bit-exactly), its inputs drawn with
-numpy.  The reference's four training tests there wait for the training
-slice."""
+numpy.  The twins of its two training tests, ``test_forward_loss_finite``
+and ``test_train_step_no_nans``, are tests/test_torch_forward_train.py's
+parity tests."""
 import importlib
 
 import jax

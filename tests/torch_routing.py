@@ -15,7 +15,15 @@ the reference's expert ids in the same call order, weighted by its own
 probabilities.  Each token where the port would have picked otherwise
 must be a near-tie of the reference (its k-th vs (k+1)-th gap below 4x
 the frameworks' probability difference); tests/test_torch_ssm.py holds
-the router's own picks."""
+the router's own picks.
+
+``traced=True`` records inside a jitted and differentiated reference
+(``jax.debug.callback``, ordered: a ``lax.scan`` over layers or a
+``jax.checkpoint`` leaves the picks abstract), and replays a pick already
+made for the same router input and weight without taking another: the
+port's ``torch.utils.checkpoint`` (remat) calls the router again in the
+backward.  A remat reference records each call twice, the forward's
+first, so the port's forward takes the first half in order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,26 +35,36 @@ from repro_torch.models import lm as tlm
 
 
 class SameRouting:
-    def __init__(self, monkeypatch):
-        self.calls, self.flips = [], 0
+    def __init__(self, monkeypatch, traced=False):
+        self.calls, self.flips, held = [], 0, {}
         j_router, t_router = jl.moe_router, tl.moe_router
 
         def record(x2d, w, k):
             p, e = j_router(x2d, w, k)
             probs = jax.nn.softmax((x2d @ w).astype(jnp.float32), axis=-1)
-            self.calls.append((np.array(probs), np.array(e)))
+            if traced:
+                jax.debug.callback(lambda pr, ids: self.calls.append(
+                    (np.array(pr), np.array(ids))), probs, e, ordered=True)
+            else:
+                self.calls.append((np.array(probs), np.array(e)))
             return p, e
 
         def replay(x2d, w, k):
-            probs_j, ids_j = self.calls.pop(0)
+            key = (w.data_ptr(), x2d.detach().float().numpy().tobytes())
+            if traced and key in held:
+                probs_j, ids_j = held[key]
+            else:
+                probs_j, ids_j = self.calls.pop(0)
+                held[key] = probs_j, ids_j
             _, own = t_router(x2d, w, k)
             probs = torch.softmax((x2d @ w).float(), dim=-1)
             assert probs.shape == probs_j.shape, "router calls out of step"
+            p_own = probs.detach().numpy()
             flip = (np.sort(own.numpy(), -1) != np.sort(ids_j, -1)).any(-1)
             if flip.any():
                 srt = -np.sort(-probs_j[flip], axis=-1)
                 gap = srt[:, k - 1] - srt[:, k]
-                diff = np.abs(probs.numpy()[flip] - probs_j[flip]).max(-1)
+                diff = np.abs(p_own[flip] - probs_j[flip]).max(-1)
                 assert (gap < 4 * diff).all(), (gap, diff)
                 self.flips += int(flip.sum())
             ids = torch.from_numpy(ids_j).long()
