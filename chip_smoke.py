@@ -167,6 +167,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    it falls below step 0's from step 8.  Then the ten tiny
    families' ``forward_train`` + backward on the card against the CPU
    (loss and every gradient leaf within 2e-2).
+12. Production layouts, in a child process (``chip_smoke.py --layouts
+   CARD``) so that its fake process group never meets phases 1-11's
+   state: the sharding specs on DTensor meshes on "cuda" over
+   ``launch.mesh.fake_world(512)`` (this process rank 0, the card its
+   device): the reference's (16, 16) and (2, 16, 16) meshes and
+   ``make_worker_mesh(64, tp=8)``, an (8, 8) mesh of 64 GPUs, 8 a node.
+   (a) Every supported (arch x shape) cell's ``specs.input_specs`` on
+   each: every leaf's local shape under DTensor's placements as its spec
+   implies, and a table of bytes a device (params, AdamW moments, cache,
+   inputs; not activations) against the card's memory; the same local
+   shape check for ``serve_fullshard``'s decode cells (KV sequence over
+   ("model", "data"), a ``_StridedShard``).  (b) Rank 0's shards of
+   deepseek-v2-236b at full depth (60 layers) on the (8, 8) mesh, params
+   and both moments (35.96 GiB), allocated on the card, filled from a
+   seeded generator and wrapped with ``DTensor.from_local``: global and
+   local shapes as the specs give them, and the rise in
+   ``memory_allocated`` the table's bytes within 512 bytes a leaf; then
+   freed.  No kernel is launched.
    Phases 5-6 and 9-10 run through one ``serve_path``, with phases 5-6's
    forward on the prompt and prefill-vs-forward check.  Both phases run
    before a failed check ends the script; each counts its launches under
@@ -2527,6 +2545,296 @@ def _tree(items):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: production layouts
+# ---------------------------------------------------------------------------
+# In a child process (``--layouts``), so the fake process group never meets
+# phases 1-11's state.  The meshes are DTensor ``DeviceMesh``es on "cuda"
+# over ``launch.mesh.fake_world(512)``: this process is rank 0, so the card
+# is rank 0's device, and only rank 0's shards exist.  Per-device bytes
+# count params, AdamW moments, caches and inputs, not activations (that is
+# the dry run's, ROADMAP Queue 1 item 3).
+LAYOUT_MESHES = ("16x16", "2x16x16", "8x8")
+PLACE_ARCH, PLACE_MESH = "deepseek-v2-236b", "8x8"
+# memory_allocated counts the caching allocator's blocks: a request is
+# rounded up to 512 bytes, and one of more than 1 MiB may take up to 1 MiB
+# more of its segment unsplit (8,273,920 bytes over 57 leaves on the H100);
+# the requested bytes (``memory_stats``' "requested_bytes") carry none of it
+PLACE_SLACK = 1 << 20       # bytes a leaf memory_allocated may add
+GIB = 2 ** 30
+
+
+def layouts_phase(card: str) -> None:
+    """Phase 12: ``layouts_main`` in a child process; fails unless the
+    child exits 0."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--layouts", card], timeout=600)
+    log(f"  phase 12 wall with the child's start "
+        f"{time.perf_counter() - t0:.1f} s")
+    if res.returncode:
+        raise AssertionError(f"phase 12 (production layouts) failed: exit "
+                             f"{res.returncode}")
+
+
+def spec_leaves(tree, path=()):
+    """[(key path, leaf)] of nested dicts, NamedTuples and tuples; a
+    None is a leaf."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif type(tree) in (tuple, list):
+        items = enumerate(tree)
+    else:
+        return [("/".join(map(str, path)), tree)]
+    return [item for k, v in items for item in spec_leaves(v, path + (k,))]
+
+
+def sharded_bytes(pairs, mesh, fails, where):
+    """Bytes a device holds of (leaf, sharding) pairs.  Each leaf's local
+    shape from DTensor's placements must equal the one its spec
+    implies."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    total = 0
+    for path, leaf, sh in pairs:
+        shape = tuple(leaf.shape)
+        if sh is None:
+            local = shape
+        else:
+            local = sh.shard_shape(shape)
+            got, _ = compute_local_shape_and_global_offset(
+                shape, mesh, sh.placements)
+            if tuple(got) != local:
+                fails.append(f"{where} {path}: local shape {tuple(got)} "
+                             f"where its spec {sh.spec} gives {local}")
+        n = 1
+        for d in local:
+            n *= d
+        total += n * leaf.element_size()
+    return total
+
+
+def cell_bytes(lm, cfg, cell, info, mesh, fails, where):
+    """{params, moments, cache, inputs}: bytes a device of ``cell``
+    (``specs.input_specs``)."""
+    args, ins = cell["args"], cell["in_shardings"]
+
+    def pairs(tree, shs):
+        a, b = spec_leaves(tree), dict(spec_leaves(shs))
+        return [(k, leaf, b[k]) for k, leaf in a]
+
+    out = {"params": sharded_bytes(pairs(args[0], ins[0]), mesh,
+                                   fails, where)}
+    kind, B, S = info["kind"], info["batch"], info["seq"]
+    if kind == "train":
+        out["moments"] = sum(sharded_bytes(pairs(t, s), mesh, fails, where)
+                             for t, s in ((args[1].mu, ins[1].mu),
+                                          (args[1].nu, ins[1].nu)))
+        out["inputs"] = sharded_bytes(pairs(args[2], ins[2]), mesh,
+                                      fails, where)
+    elif kind == "prefill":
+        cache = lm.abstract_cache(cfg, B, S)
+        out["cache"] = sharded_bytes(pairs(cache, cell["out_shardings"][1]),
+                                     mesh, fails, where)
+        out["inputs"] = sharded_bytes(pairs(args[1], ins[1]), mesh,
+                                      fails, where)
+    else:
+        out["cache"] = sharded_bytes(pairs(args[2], ins[2]), mesh,
+                                     fails, where)
+        out["inputs"] = sharded_bytes(
+            pairs((args[1], args[3]), (ins[1], ins[3])), mesh, fails, where)
+    return out
+
+
+def layout_table(torch, lm, S, ShardingEnv, get_config, archs, meshes,
+                 card, fails):
+    """Phase 12 (a): every supported (arch x shape) cell on each mesh, its
+    bytes a device against the card's memory.  Returns {(mesh, arch,
+    shape): bytes}."""
+    cap = torch.cuda.get_device_properties(0).total_memory
+    log(f"  bytes a device (GiB) of params (their dtypes: bf16, mamba's "
+        f"A_log f32), AdamW mu + nu (f32; train cells), cache (decode "
+        f"cells; a prefill's output cache) and inputs; activations not "
+        f"counted; against the card's {cap / GIB:.2f} GiB [{card}]")
+    log(f"  {'mesh':8} {'arch':22} {'shape':12} {'params':>8} "
+        f"{'moments':>8} {'cache':>8} {'inputs':>8} {'total':>8}")
+    table = {}
+    for mname in LAYOUT_MESHES:
+        mesh = meshes[mname]
+        env = ShardingEnv(mesh)
+        for arch in archs:
+            cfg = get_config(arch)
+            for shape in S.SHAPES:
+                if not S.cell_supported(cfg, shape)[0]:
+                    continue
+                where = f"{mname} {arch} {shape}"
+                cell = S.input_specs(cfg, shape, env)
+                b = cell_bytes(lm, cfg, cell, S.SHAPES[shape], mesh, fails,
+                               where)
+                table[(mname, arch, shape)] = b
+                tot = sum(b.values())
+                log(f"  {mname:8} {arch:22} {shape:12} "
+                    + " ".join(f"{b.get(k, 0) / GIB:8.3f}" for k in
+                               ("params", "moments", "cache", "inputs"))
+                    + f" {tot / GIB:8.3f} "
+                    + ("fits" if tot < cap else "OVER the card"))
+    return table
+
+
+def strided_check(S, ShardingEnv, get_config, archs, meshes, card, fails):
+    """``serve_fullshard``'s decode cells, whose KV sequence dim runs over
+    ("model", "data") against the mesh's order (``_StridedShard``): every
+    leaf's local shape as its spec implies."""
+    n_cells = n_strided = 0
+    for mname in LAYOUT_MESHES:
+        env = ShardingEnv(meshes[mname], {"serve_fullshard": True})
+        for arch in archs:
+            cfg = get_config(arch)
+            for shape, info in S.SHAPES.items():
+                if info["kind"] != "decode" or \
+                        not S.cell_supported(cfg, shape)[0]:
+                    continue
+                cell = S.input_specs(cfg, shape, env)
+                shs = dict(spec_leaves(cell["in_shardings"]))
+                pairs = [(k, leaf, shs[k])
+                         for k, leaf in spec_leaves(cell["args"])]
+                sharded_bytes(pairs, meshes[mname], fails,
+                              f"{mname} {arch} {shape} serve_fullshard")
+                n_cells += 1
+                n_strided += sum(
+                    1 for _, _, sh in pairs if sh is not None and
+                    ("model", "data") in tuple(sh.spec))
+    log(f"  serve_fullshard decode: {n_cells} cells, {n_strided} cache "
+        f"leaves with the sequence over (\"model\", \"data\"), local shapes "
+        f"checked [{card}]")
+    if not n_strided:
+        fails.append("serve_fullshard: no leaf over (\"model\", \"data\")")
+
+
+def place_rank0(torch, lm, ShardingEnv, get_config, mesh, table, card,
+                fails):
+    """Phase 12 (b): rank 0's shards of PLACE_ARCH at full depth on the
+    PLACE_MESH mesh, params and AdamW moments, allocated on the card and
+    filled from a seeded CUDA generator, each wrapped as a DTensor of the
+    global shape.  The rise in the allocator's requested bytes must equal
+    the table's bytes, and that in ``memory_allocated`` them within
+    PLACE_SLACK a leaf."""
+    from repro_torch.train.optimizer import abstract_opt_state, opt_pspecs
+    cfg = get_config(PLACE_ARCH)
+    env = ShardingEnv(mesh)
+    ap = lm.abstract_params(cfg)
+    psh = lm.param_shardings(cfg, env)
+    osh, aopt = opt_pspecs(psh), abstract_opt_state(ap)
+    b = table[(PLACE_MESH, PLACE_ARCH, "train_4k")]
+    want = b["params"] + b["moments"]
+
+    def requested():
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base, base_req = torch.cuda.memory_allocated(), requested()
+    t0 = time.perf_counter()
+    placed = placed_shards(torch, mesh, ((ap, psh, "normal_"),
+                                         (aopt.mu, osh.mu, "normal_"),
+                                         (aopt.nu, osh.nu, "uniform_")),
+                           fails)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rise, rise_req = torch.cuda.memory_allocated() - base, requested() - \
+        base_req
+    n = len(placed)
+    log(f"  placed rank 0's shards of {PLACE_ARCH} ({cfg.n_layers} layers) "
+        f"on the {PLACE_MESH} mesh: {n} DTensors (params, mu, nu) in "
+        f"{secs:.3f} s; requested bytes rose {rise_req} and memory_allocated "
+        f"{rise} ({rise / GIB:.3f} GiB) against the table's {want} "
+        f"({want / GIB:.3f} GiB: params {b['params']} + moments "
+        f"{b['moments']}) [{card}]")
+    if rise_req != want:
+        fails.append(f"requested bytes rose {rise_req} for {want} in the "
+                     f"table")
+    if not 0 <= rise - want <= PLACE_SLACK * n:
+        fails.append(f"memory_allocated rose {rise} bytes for {want} in "
+                     f"the table (limit {PLACE_SLACK} a leaf, {n} leaves)")
+    placed.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - base
+    log(f"  freed: memory_allocated {left} bytes above where it started")
+    if left:
+        fails.append(f"{left} bytes still allocated after the placement")
+
+
+def placed_shards(torch, mesh, trees, fails):
+    """For each (abstract tree, its shardings, fill) the local shards as
+    DTensors of the global shapes; global and local shapes checked
+    against the abstract leaf, its spec and DTensor's placements."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    placed = []
+    for tree, shs, fill in trees:
+        shd = dict(spec_leaves(shs))
+        for path, leaf in spec_leaves(tree):
+            sh = shd[path]
+            spec_local = sh.shard_shape(leaf.shape)
+            local = torch.empty(spec_local, dtype=leaf.dtype, device="cuda")
+            getattr(local, fill)(generator=gen)
+            dt = DTensor.from_local(local, mesh, sh.placements,
+                                    shape=leaf.shape, stride=leaf.stride())
+            placed.append(dt)
+            got, _ = compute_local_shape_and_global_offset(
+                leaf.shape, mesh, sh.placements)
+            if tuple(dt.shape) != tuple(leaf.shape) or \
+                    tuple(dt.to_local().shape) != spec_local or \
+                    tuple(got) != spec_local:
+                fails.append(f"placed {path}: global {tuple(dt.shape)} "
+                             f"(want {tuple(leaf.shape)}), local "
+                             f"{tuple(dt.to_local().shape)} (spec "
+                             f"{spec_local}, DTensor {tuple(got)})")
+    return placed
+
+
+def layouts_main(card: str) -> int:
+    """Phase 12 in the child: the meshes, the table, the strided check and
+    the placement.  Exit 0 only when every check held."""
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --layouts: torch.cuda.is_available() is false")
+        return 1
+    from repro_torch.configs import ARCH_IDS, get_config, load_all
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as S
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import ShardingEnv
+    load_all()
+    fails = []
+    t0 = time.perf_counter()
+    with M.fake_world(512):
+        meshes = {"16x16": M.make_production_mesh(),
+                  "2x16x16": M.make_production_mesh(multi_pod=True),
+                  "8x8": M.make_worker_mesh(64, tp=8)}
+        log("  meshes: " + "; ".join(f"{k} {m}" for k, m in meshes.items())
+            + f"; rank 0 on cuda:{torch.cuda.current_device()}")
+        table = layout_table(torch, lm, S, ShardingEnv, get_config,
+                             ARCH_IDS, meshes, card, fails)
+        strided_check(S, ShardingEnv, get_config, ARCH_IDS, meshes, card,
+                      fails)
+        place_rank0(torch, lm, ShardingEnv, get_config, meshes[PLACE_MESH],
+                    table, card, fails)
+    log(f"  phase 12 wall {time.perf_counter() - t0:.1f} s")
+    for f in fails:
+        log(f"  FAILED: {f}")
+    return 1 if fails else 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2608,6 +2916,9 @@ def main() -> int:
     log("phase 11: training (llama3.2-3b at full width and depth; the ten "
         "tiny families on the card against the CPU)")
     by_path.update(train_paths(torch, np, card))
+    log("phase 12: production layouts (the sharding specs on DTensor "
+        "meshes; a child process)")
+    layouts_phase(card)
     for rec in kernels:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in
                                    by_path.items() if n[rec["name"]]}
@@ -2620,4 +2931,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--layouts"]:
+        sys.exit(layouts_main(sys.argv[2]))
     sys.exit(main())

@@ -10,7 +10,8 @@ A step is ``lm.forward_train``, its backward and ``adamw_update``, all in
 place; no kernel is launched (none has a backward).  Every ``ckpt_every``
 steps the params, the moments and the data cursor are saved in the
 reference's format; ``--resume`` restarts at the batch after the last
-checkpoint.  A mesh (sharded training) comes with the sharding slice.
+checkpoint.  A mesh (sharded training) comes with Sharding II (ROADMAP
+Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -52,8 +53,8 @@ def train_loop(arch: str = "small-100m", *, steps: int = 50, batch: int = 8,
     """Returns (params, opt, losses of the steps run)."""
     if mesh is not None:
         raise NotImplementedError(
-            "train_loop(mesh=...): sharded training comes with the sharding "
-            "slice (ROADMAP Queue 1 item 8); the port trains on one device")
+            "train_loop(mesh=...): sharded training comes with Sharding II "
+            "(ROADMAP Queue 1 item 3); the port trains on one device")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_loop: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")

@@ -405,11 +405,12 @@ def moe_dense_ref(x2d, p, cfg):
 
 def moe_block(x, p, cfg, impl: str = "dense"):
     """MoE FFN + optional shared experts.  Only the dense impl is ported;
-    expert parallelism (``moe_ep``) comes with the sharding slice."""
+    expert parallelism (``moe_ep``) comes with Sharding II (ROADMAP Queue
+    1 item 3)."""
     if impl != "dense":
         raise NotImplementedError(f"moe_block impl={impl!r}: only the dense "
-                                  f"impl is ported; moe_ep comes with the "
-                                  f"sharding slice")
+                                  f"impl is ported; moe_ep comes with "
+                                  f"Sharding II (ROADMAP Queue 1 item 3)")
     B, S, d = x.shape
     y = moe_dense_ref(x.reshape(-1, d), p, cfg).reshape(B, S, d)
     if cfg.n_shared_experts:

@@ -38,6 +38,12 @@ per mamba slot; enc-dec {k, v, cross_k, cross_v}.  ``decode_step`` (every
 family, over these caches) and ``decode_step_paged`` (the uniform GQA
 families, over the serving pool) update them in place, where the
 reference returns new ones.
+
+The sharding specs are the reference's: ``param_rules`` /
+``param_shardings`` for the params, ``abstract_cache`` / ``cache_pspecs``
+for the caches, as ``NamedSharding`` (DTensor placements) on a
+``ShardingEnv``'s mesh.  The entry points above take no ``env``: they run
+on one device.
 """
 from __future__ import annotations
 
@@ -51,6 +57,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
+from repro_torch.models.sharding import (ShardingEnv, param_pspecs,
+                                         tree_map_with_path)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -283,6 +291,81 @@ def _layers(tree):
     per = {k: _layers(v) for k, v in tree.items()}
     n = len(next(iter(per.values())))
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+# ===========================================================================
+# sharding rules
+# ===========================================================================
+_COL = {"w1", "w3", "wdq", "wdkv", "in_proj", "x_proj", "dt_w", "ws1",
+        "ws3", "Wr", "Wk", "Wv", "Wg", "Wck", "Wcr", "maa_w1", "decay_w1"}
+_ROW = {"w2", "out_proj", "ws2", "Wo", "Wcv", "decay_w2"}
+
+
+def param_rules(cfg: ModelConfig, env: ShardingEnv):
+    """rules(path, shape) -> per-dim axis wish list (divisibility-pruned
+    later by ShardingEnv.spec)."""
+    fsdp, tp = env.fsdp_axis, env.tp_axis
+
+    def rules(path: str, shape):
+        name = path.split("/")[-1]
+        rank = len(shape)
+        if name == "embed":
+            base = [tp, None]
+        elif name == "unembed":
+            base = [None, tp]
+        elif name in ("conv_w", "A_log"):
+            base = [tp, None]
+        elif name in ("conv_b", "D", "dt_b"):
+            base = [tp]
+        elif name == "faaaa":
+            base = [tp, None]
+        elif name == "router":
+            base = [fsdp, None]
+        elif name in ("wq", "wuq", "wukv"):
+            # (d|r, H, dh): shard heads over tp if divisible, else head_dim
+            if env.heads_shardable(cfg.n_heads):
+                base = [fsdp, tp, None]
+            else:
+                base = [fsdp, None, tp]
+        elif name in ("wk", "wv"):
+            base = [fsdp, None, None]          # kv heads replicated over tp
+        elif name == "wo":
+            if env.heads_shardable(cfg.n_heads):
+                base = [tp, None, fsdp]
+            else:
+                base = [None, tp, fsdp]
+        elif name in _COL:
+            base = [fsdp, tp]
+        elif name in _ROW:
+            base = [tp, fsdp]
+        else:
+            base = [None] * min(rank, 2)
+        if name in ("w1", "w3", "w2") and rank - _n_stack(path) == 3:
+            # MoE expert weights
+            ep = env.moe_ep(cfg.n_experts)
+            if name == "w2":
+                base = [tp, None, fsdp] if ep else [None, tp, fsdp]
+            else:
+                base = [tp, fsdp, None] if ep else [None, fsdp, tp]
+        pad = rank - len(base)
+        return [None] * pad + base
+
+    return rules
+
+
+def _n_stack(path: str) -> int:
+    n = 0
+    if path.startswith("layers/") or "/layers/" in path:
+        n = 1
+    if "superblocks" in path:
+        parts = path.split("/")
+        n = 1 + (1 if parts[-2] in ("mamba", "moe", "ffn") else 0)
+    return n
+
+
+def param_shardings(cfg: ModelConfig, env: ShardingEnv):
+    """The params' tree of ``NamedSharding`` (None without a mesh)."""
+    return param_pspecs(abstract_params(cfg), env, param_rules(cfg, env))
 
 
 # ===========================================================================
@@ -653,6 +736,54 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=BF16,
                 "krope": zeros(n, batch, max_len, cfg.qk_rope_head_dim)}
     return {"k": zeros(n, batch, max_len, K, dh),
             "v": zeros(n, batch, max_len, K, dh)}
+
+
+def abstract_cache(cfg, batch, max_len, dtype=BF16, src_len=None):
+    """The cache's tree of shapes and types with nothing allocated (meta
+    tensors), as the reference's ``jax.eval_shape`` of ``init_cache``."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta",
+                      src_len=src_len)
+
+
+def cache_pspecs(cfg: ModelConfig, env: ShardingEnv, batch: int,
+                 max_len: int, src_len: Optional[int] = None):
+    """Sharding for the serving cache: batch over data axes, seq over
+    'model' (flash-decoding layout); rwkv/mamba states shard their inner
+    dim over 'model'."""
+    ab = abstract_cache(cfg, batch, max_len, src_len=src_len)
+    bt = env.batch_axes
+    if env.opts.get("serve_fullshard"):
+        # decode mode for >100B archs: batch replicated, sequence sharded
+        # over (model x data) -> weights stay fully sharded, no gathers
+        bt = None
+        seq = ("model", "data")
+    elif env.opts.get("cache_2d"):
+        # serve layout: KV sequence sharded over BOTH axes (batch stays
+        # on 'data'); decode reads it back identically
+        seq = ("model", "data")
+    else:
+        seq = "model"
+
+    def spec_of(path, leaf):
+        name = path[-1]
+        dims = leaf.shape
+        if name in ("k", "v", "ckv", "krope", "cross_k", "cross_v"):
+            if len(dims) == 4:
+                want = [None, bt, seq, None]
+            else:
+                want = [None, bt, seq, None, None]
+            return env.named(dims, want)
+        if name == "wkv":
+            return env.named(dims, [None, bt, "model", None, None])
+        if name in ("shift_tm", "shift_cm"):
+            return env.named(dims, [None, bt, None])
+        if name == "conv":
+            return env.named(dims, [None, None, bt, None, "model"])
+        if name == "ssm":
+            return env.named(dims, [None, None, bt, "model", None])
+        return env.named(dims, [None] * len(dims))
+
+    return tree_map_with_path(spec_of, ab)
 
 
 def prefill(params, batch, cfg: ModelConfig,

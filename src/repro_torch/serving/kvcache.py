@@ -299,3 +299,11 @@ class PagedKVPool:
         v = self.v_pool[:, idx].reshape(self.L, -1, self.K, self.dh)
         n = self.lens[sid]
         return k[:, :n], v[:, :n], n
+
+    def block_table_array(self, sid: str, max_blocks: int) -> np.ndarray:
+        """Padded int32 block table (host array) for the paged-decode
+        kernel."""
+        blocks = self.tables.get(sid, [])
+        out = np.zeros((max_blocks,), np.int32)
+        out[:len(blocks)] = blocks
+        return out

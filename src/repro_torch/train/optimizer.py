@@ -5,8 +5,9 @@ The reference returns new trees; here every leaf is updated in place, in
 slices of at most 2**26 elements, each slice through the reference's
 expression in its order of operations.  A functional update of
 llama3.2-3b's stacked ``mlp.w1`` (704 M elements) would hold about six
-f32 temporaries of 2.8 GB at once.  The moments' layout sharded over a
-mesh (``opt_pspecs``) comes with the sharding slice.
+f32 temporaries of 2.8 GB at once.  ``opt_pspecs`` gives the moments
+the params' shardings, so the optimizer state is sharded as the params
+are (ZeRO-style); the update itself runs on one device.
 """
 from __future__ import annotations
 
@@ -52,6 +53,12 @@ def abstract_opt_state(abstract_params) -> OptState:
     """The state's shapes and types with nothing allocated, from
     ``lm.abstract_params`` (meta tensors)."""
     return init_opt_state(abstract_params)
+
+
+def opt_pspecs(param_shardings) -> OptState:
+    """The state's shardings: each moment as its param, the step
+    replicated (None)."""
+    return OptState(mu=param_shardings, nu=param_shardings, step=None)
 
 
 def _slices(t):

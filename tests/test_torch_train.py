@@ -305,7 +305,7 @@ def test_forward_train_refuses_options_it_does_not_port():
 
 
 def test_train_loop_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         ttrain.train_loop("micro", steps=1, mesh=object(), device="cpu")
 
 
