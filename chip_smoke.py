@@ -42,6 +42,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    frames, non-causal); paged append + decode at G = 1, dh = 64 over
    seamless's self cache (one block of 288 a row, lens 257) and decode
    over its cross cache (lens 1024); all also within ``TOL_ROW_STEPS``.
+   Then phase 13's rank-local shapes (one row, half the heads a rank):
+   flash at B=1 S=1024 H=12 K=4 and H=24 K=4 (window 4096), paged
+   append + decode over one gathered block of 1040 positions.
    Each kernel is timed with CUDA events beside its plain version, its
    bound and, for flash, ``scaled_dot_product_attention`` (a yardstick
    the port never calls); flash and paged decode also at the further
@@ -185,6 +188,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    local shapes as the specs give them, and the rise in
    ``memory_allocated`` the table's bytes within 512 bytes a leaf; then
    freed.  No kernel is launched.
+13. Sharded serving, in a child process (``chip_smoke.py --sharded
+   CARD``) so that its threaded world never meets the other phases'
+   state: 4 thread-ranks (``launch.mesh.threaded_world``) on a
+   ("data", "model") mesh of (2, 2) on "cuda" with the dry run's default
+   options, every rank computing on its shards on the one card.
+   llama3.2-3b at full width and depth (seed 0): the one-device
+   ``lm.prefill`` (B=2 x 1024, max_len 1040) and 16 greedy
+   ``lm.decode_step``s, then the params distributed by
+   ``param_shardings``, the sharded prefill and 16 sharded steps
+   teacher-forced with the one-device tokens (exactly 112 flash_prefill,
+   1,792 each of paged_append and paged_decode: 4 ranks x 28 layers);
+   every step's logits within ``TOL_SHARDED`` of the largest logit of the
+   one-device step's, the greedy picks equal or parted at a near-tie; a
+   planted fault (rank 1 reading the other model shard's kv heads) must
+   break the limit.  mixtral-8x22b at full width, depth cut from 56 to 2:
+   the one-device prefill's cache distributed by ``cache_pspecs`` and 16
+   sharded steps through ``moe_ep``'s EP branch against 16 one-device
+   ones, and the sharded prefill under ``moe_impl="dense"`` against the
+   one-device prefill, both held to the one-device run's MoE picks.  The
+   walls (4 thread-ranks sharing one card: not a multi-GPU deployment's)
+   beside the one-device ones, and ``max_memory_allocated``.  Phase 2
+   checks and times the kernels at the ranks' shapes
+   (``FLASH_RANK``, ``PAGED_RANK``).
    Phases 5-6 and 9-10 run through one ``serve_path``, with phases 5-6's
    forward on the prompt and prefill-vs-forward check.  Both phases run
    before a failed check ends the script; each counts its launches under
@@ -374,22 +400,29 @@ def flash_phase(torch, gen, gen_more):
             **main, "more_shapes": more, "max_abs_err": max(errs)}
 
 
-def flash_long_shapes(torch, gen, rec):
-    """Flash prefill at this slice's served shapes, drawn from ``gen``
-    after the paged shapes' draws: mixtral-8x22b's 4608-token prompt (H=48
-    over K=8, G=6) with its window of 4096 biting, and llava-next-34b's
-    2048 patches + 512 tokens (H=56 over K=8, G=7), causal.  Checked
-    (``check_long``: TOL_BF16 and a limit scaled to each row), timed
-    beside SDPA (the band as a boolean ``attn_mask`` where there is
-    a window) and the bound; added to ``rec``'s ``more_shapes`` and
+FLASH_LONG = [((1, 4608, 48, 8, 128), 4096), ((1, 2560, 56, 8, 128), 0)]
+# phase 13's rank-local shapes on its (2, 2) mesh: one row of 1024 tokens
+# a rank, llama3.2-3b's 24 q heads over 8 KV heads split to 12 over 4,
+# mixtral-8x22b's 48 over 8 to 24 over 4 (G 6; its window of 4096 does not
+# bite at 1024 tokens)
+FLASH_RANK = [((1, 1024, 12, 4, 128), 0), ((1, 1024, 24, 4, 128), 4096)]
+
+
+def flash_long_shapes(torch, gen, rec, cases=FLASH_LONG):
+    """Flash prefill at further served shapes, drawn from ``gen`` after
+    the earlier shapes' draws: by default (``FLASH_LONG``) mixtral-8x22b's
+    4608-token prompt (H=48 over K=8, G=6) with its window of 4096 biting,
+    and llava-next-34b's 2048 patches + 512 tokens (H=56 over K=8, G=7),
+    causal.  Checked (``check_long``: TOL_BF16 and a limit scaled to each
+    row), timed beside SDPA (the band as a boolean ``attn_mask`` where the
+    window bites) and the bound; added to ``rec``'s ``more_shapes`` and
     ``max_abs_err``."""
     from repro_torch.kernels.flash_attention import ops as F
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
                                 dtype=torch.float32).to(torch.bfloat16)
-    for (B, S, H, K, D), window in [((1, 4608, 48, 8, 128), 4096),
-                                    ((1, 2560, 56, 8, 128), 0)]:
+    for (B, S, H, K, D), window in cases:
         q, k, v = mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D)
         out = F.flash_prefill(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
@@ -405,7 +438,7 @@ def flash_long_shapes(torch, gen, rec):
         plain_ms = timed(torch, lambda: F.flash_prefill_plain(
             q, k, v, causal=True, window=window), iters=2, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window:
+        if window and window < S:
             i = torch.arange(S, device="cuda")
             band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
                                                   < window)
@@ -484,12 +517,12 @@ def flash_width_shapes(torch, gen, rec):
             f"{plain_ms:.4f} ms  sdpa {sdpa_ms}  bound {bms:.4f} ms ({by})")
 
 
-def paged_g1_shapes(torch, gen, recs):
-    """paged_append + paged_decode at phase 10's shapes (G = 1, dh = 64:
-    ``PAGED_SEAMLESS``), drawn from ``gen`` after the flash width shapes';
-    added to the two kernels' records ``recs``."""
+def paged_g1_shapes(torch, gen, recs, cases=None):
+    """paged_append + paged_decode at further shapes, by default phase
+    10's (G = 1, dh = 64: ``PAGED_SEAMLESS``), drawn from ``gen`` after
+    the earlier shapes'; added to the two kernels' records ``recs``."""
     errs = {"paged_decode": [], "paged_append": []}
-    more = paged_more_shapes(torch, gen, errs, PAGED_SEAMLESS)
+    more = paged_more_shapes(torch, gen, errs, cases or PAGED_SEAMLESS)
     for rec in recs:
         rec["more_shapes"] += more[rec["name"]]
         rec["max_abs_err"] = max([rec["max_abs_err"], *errs[rec["name"]]])
@@ -618,6 +651,16 @@ PAGED_SEAMLESS = [
      True)]
 
 
+# phase 13's rank-local decode: one row a rank over the layer's gathered
+# cache of 1040 positions (one block), its last step (lens 1040), the
+# append first; q heads as FLASH_RANK's
+PAGED_RANK = [
+    ("rank-local llama3.2-3b (2, 2)", 1, 12, 4, 128, 1040, 1, [1040], 0,
+     True, False),
+    ("rank-local mixtral-8x22b (2, 2)", 1, 24, 4, 128, 1040, 1, [1040],
+     4096, True, False)]
+
+
 def paged_more_shapes(torch, gen, errs, cases=PAGED_MORE):
     """paged_decode at the served path's real shape (B=4: one live row of
     1056 tokens, three idle rows of len 1 on table rows of zeros, nb=128),
@@ -698,8 +741,8 @@ def contiguous_sdpa(torch, q, kp, vp, lens, window):
     ``paged_decode`` computes over a contiguous cache (one block a row,
     table ``arange(B)``): row b's query over block b's first ``lens[b]``
     keys, sliced where every row has the same length, else masked.  A
-    yardstick the port never calls; None with a window."""
-    if window:
+    yardstick the port never calls; None where a window bites."""
+    if window and max(lens) > window:
         return None
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, H, K = q.shape[0], q.shape[1], kp.shape[2]
@@ -2835,6 +2878,320 @@ def layouts_main(card: str) -> int:
     return 1 if fails else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sharded serving, 4 thread-ranks sharing the card
+# ---------------------------------------------------------------------------
+# In a child process (``--sharded``), so the threaded world never meets the
+# other phases' state.  The ranks are threads of the child on torch's
+# threaded process group (``launch.mesh.threaded_world``), a
+# ("data", "model") mesh of (2, 2) on "cuda" with the dry run's default
+# options (sp, fsdp, moe_impl "ep"): every rank computes on its own shards
+# of one card, so the walls are those of 4 thread-ranks sharing one card,
+# not of a multi-GPU deployment.
+SHARDED_MESH = (2, 2)
+SHARDED_B, SHARDED_S, SHARDED_STEPS = 2, 1024, 16
+SHARDED_DEPTH = 2                 # mixtral-8x22b: 56 layers cut to 2
+# The sharded run's logits against the one-device run's on the same
+# params and tokens, as the largest |difference| over the largest |logit|
+# (at least 1): the ranks round each partial product of the out-projection
+# and the FFN to bf16 and sum them over 'model', where one device rounds
+# the whole contraction once, so the readings are of the size of the
+# decode-vs-forward gaps of the paths above (PERF.md, phase 13's cell)
+TOL_SHARDED = 5e-2
+SHARDED_COUNTS = "SHARDED_LAUNCHES "
+
+
+def sharded_phase(card: str) -> dict:
+    """Phase 13: ``sharded_main`` in a child process; its output is
+    echoed, and its launch counts by path (a line of their own) returned.
+    Fails unless the child exits 0."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--sharded", card], timeout=600,
+                         stdout=subprocess.PIPE, text=True)
+    counts = None
+    for line in res.stdout.splitlines():
+        if line.startswith(SHARDED_COUNTS):
+            counts = json.loads(line[len(SHARDED_COUNTS):])
+        else:
+            log(line)
+    log(f"  phase 13 wall with the child's start "
+        f"{time.perf_counter() - t0:.1f} s")
+    if res.returncode or counts is None:
+        raise AssertionError(f"phase 13 (sharded serving) failed: exit "
+                             f"{res.returncode}")
+    return counts
+
+
+def one_device(torch, lm, cfg, params, batch, max_len, routing=None):
+    """The one-device run: ``lm.prefill`` then SHARDED_STEPS greedy
+    ``lm.decode_step``s, after an unmeasured prefill and step (the
+    kernels' and the GEMM libraries' first calls).  Returns (last logits,
+    the prefill's cache (a copy), each step's logits, the tokens fed,
+    prefill wall s, step wall ms)."""
+    last, cache = lm.prefill(params, batch, cfg, max_len=max_len)
+    lm.decode_step(params, last.argmax(-1).to(torch.int32), cache,
+                   SHARDED_S, cfg)
+    del last, cache
+    if routing:
+        routing.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = lm.prefill(params, batch, cfg, max_len=max_len)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    first = _clone(cache)
+    tok = last.argmax(-1).to(torch.int32)
+    steps, ids = [], []
+    t0 = time.perf_counter()
+    for t in range(SHARDED_STEPS):
+        ids.append(tok)
+        lg, cache = lm.decode_step(params, tok, cache, SHARDED_S + t, cfg)
+        steps.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_step = (time.perf_counter() - t0) / SHARDED_STEPS * 1e3
+    del cache
+    return last, first, steps, ids, t_pre, t_step
+
+
+def sharded_run(torch, cfg, params, batch, max_len, ids, *, prefill=True,
+                cache=None, moe_impl=None, steps=SHARDED_STEPS):
+    """The sharded run on each of the 4 thread-ranks: params (and a given
+    one-device cache) distributed by their specs, ``lm.prefill`` (under
+    ``moe_impl`` where given; skipped without ``prefill``) and ``steps``
+    ``lm.decode_step``s teacher-forced with ``ids``, from the given cache
+    or else the prefill's.  Returns rank 0's {"last", "cache", "steps":
+    the logits and caches whole on the card, "t_pre": prefill wall s,
+    "t_step": step wall ms}."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_worker_mesh, threaded_world
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import ShardingEnv, distribute
+
+    dp, tp = SHARDED_MESH
+
+    def rank(r):
+        env = ShardingEnv(make_worker_mesh(dp * tp, tp=tp))
+        env_pre = (ShardingEnv(env.mesh, {"moe_impl": moe_impl})
+                   if moe_impl else env)
+        ps = distribute(params, lm.param_shardings(cfg, env))
+        specs = lm.cache_pspecs(cfg, env, SHARDED_B, max_len)
+        out = {}
+
+        def sync():
+            torch.cuda.synchronize()
+            dist.barrier()
+            return time.perf_counter()
+
+        with torch.no_grad():
+            if prefill:
+                t0 = sync()
+                last, got = lm.prefill(ps, batch, cfg, env_pre,
+                                       max_len=max_len)
+                out["t_pre"] = sync() - t0
+                out["last"] = last.full_tensor()
+                out["cache"] = {k: v.full_tensor().clone()
+                                for k, v in got.items()}
+            c = got if cache is None else distribute(_clone(cache), specs)
+            lgs = []
+            t0 = sync()
+            for t in range(steps):
+                lg, c = lm.decode_step(ps, ids[t], c, SHARDED_S + t, cfg,
+                                       env)
+                lgs.append(lg)
+            out["t_step"] = (sync() - t0) / steps * 1e3
+            out["steps"] = [lg.full_tensor() for lg in lgs]
+        return out
+
+    with threaded_world(dp * tp, timeout=300) as run:
+        return run(rank)[0]
+
+
+def held_sharded(name, ref, got, fails):
+    """Each step's logits within TOL_SHARDED of the one-device run's, and
+    the greedy picks equal or parted at a near-tie (the one-device top-2
+    gap below the row's difference).  Returns the largest reading."""
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(got, ref)):
+        err = rel_err(a, b)
+        worst = max(worst, err)
+        diff = (a.float() - b.float()).abs().amax(-1).flatten()
+        top2 = b.float().flatten(0, -2).topk(2, -1).values
+        part = (a.argmax(-1) != b.argmax(-1)).flatten()
+        if err >= TOL_SHARDED:
+            fails.append(f"{name} step {t}: {err:.3e} >= {TOL_SHARDED}")
+        far = part & ((top2[:, 0] - top2[:, 1]) >= diff)
+        if bool(far.any()):
+            fails.append(f"{name} step {t}: a greedy pick differs away "
+                         f"from a near-tie")
+    log(f"  {name}: {len(got)} steps, largest logit error {worst:.3e} of "
+        f"the largest logit (limit {TOL_SHARDED:g})")
+    return worst
+
+
+def sharded_llama(torch, card, wrappers, fails):
+    """llama3.2-3b at full width and depth: one-device prefill + 16 greedy
+    steps, then the sharded prefill + 16 steps teacher-forced with the
+    one-device tokens (exact launches), then the last step again with
+    rank 1 reading the wrong kv heads (planted: must break the limit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    cfg = get_config("llama3.2-3b")
+    params = ready(torch, lm, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (SHARDED_B, SHARDED_S),
+                                     generator=gen, device="cuda")}
+    max_len = SHARDED_S + SHARDED_STEPS
+    last, first, steps, ids, t_pre, t_step = one_device(
+        torch, lm, cfg, params, batch, max_len)
+    reset(wrappers)
+    got = sharded_run(torch, cfg, params, batch, max_len, ids)
+    n = counts(wrappers)
+    dp, tp = SHARDED_MESH
+    ranks, L_ = dp * tp, cfg.n_layers
+    expect = {**dict.fromkeys(wrappers, 0), "flash_prefill": ranks * L_,
+              "paged_append": SHARDED_STEPS * L_ * ranks,
+              "paged_decode": SHARDED_STEPS * L_ * ranks}
+    log(f"  sharded llama3.2-3b launches {n} (expected {expect})")
+    if n != expect:
+        fails.append(f"sharded llama3.2-3b launches {n} != {expect}")
+    err = rel_err(got["last"], last)
+    log(f"  prefill's last logits {err:.3e}, cache "
+        + ", ".join(f"{k} {rel_err(got['cache'][k], v):.3e}"
+                    for k, v in first.items()))
+    if not err < TOL_SHARDED:
+        fails.append(f"sharded llama3.2-3b prefill {err:.3e}")
+    held_sharded("sharded llama3.2-3b decode", steps, got["steps"], fails)
+    log(f"  walls: sharded prefill {got['t_pre']:.3f} s, decode step "
+        f"{got['t_step']:.2f} ms (4 thread-ranks sharing one card); "
+        f"one-device prefill {t_pre:.3f} s, step {t_step:.2f} ms [{card}]")
+    # planted: in the first decode step from the one-device prefill's
+    # cache, rank 1 (data 0, model 1) reads the kv heads of the other
+    # model shard's q heads
+    kv_for_heads = L._kv_for_heads
+
+    def wrong_heads(k, v, h0, Hl, H):
+        import torch.distributed as dist
+        if dist.get_rank() == 1:
+            h0 = (h0 + Hl) % H
+        return kv_for_heads(k, v, h0, Hl, H)
+
+    L._kv_for_heads = wrong_heads
+    try:
+        bad = sharded_run(torch, cfg, params, batch, max_len, ids,
+                          prefill=False, cache=first, steps=1)
+    finally:
+        L._kv_for_heads = kv_for_heads
+    err = rel_err(bad["steps"][0], steps[0])
+    log(f"  planted (rank 1 reads the other shard's kv heads): step 0 "
+        f"{err:.3e} (must be >= {TOL_SHARDED})")
+    if err < TOL_SHARDED:
+        fails.append(f"planted wrong kv heads not caught: {err:.3e}")
+    del params
+    return n
+
+
+def sharded_mixtral(torch, card, wrappers, fails):
+    """mixtral-8x22b at full width, depth 2: the one-device prefill's
+    cache distributed by ``cache_pspecs`` and 16 sharded decode steps
+    through ``moe_ep``'s EP branch (4 experts a rank, their d_model
+    gathered over 'data' in the body) against 16 one-device steps; the
+    sharded prefill under ``moe_impl="dense"`` against the one-device
+    prefill.  Both held to the one-device run's MoE picks."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.routing_replay import SameRouting
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"),
+                              n_layers=SHARDED_DEPTH)
+    params = ready(torch, lm, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (SHARDED_B, SHARDED_S),
+                                     generator=gen, device="cuda")}
+    max_len = SHARDED_S + SHARDED_STEPS
+    routing = SameRouting()
+    last, first, steps, ids, t_pre, t_step = one_device(
+        torch, lm, cfg, params, batch, max_len, routing)
+    dp, tp = SHARDED_MESH
+
+    def rows(n_rows, m):           # a rank routes its data shard's tokens
+        return 0 if n_rows == m else (dist.get_rank() // tp) * m
+
+    routing.replay(rows=rows)
+    reset(wrappers)
+    try:
+        got = sharded_run(torch, cfg, params, batch, max_len, ids,
+                          cache=first, moe_impl="dense")
+    finally:
+        routing.restore()
+    n = counts(wrappers)
+    ranks, L_ = dp * tp, cfg.n_layers
+    expect = {**dict.fromkeys(wrappers, 0), "flash_prefill": ranks * L_,
+              "paged_append": SHARDED_STEPS * L_ * ranks,
+              "paged_decode": SHARDED_STEPS * L_ * ranks}
+    log(f"  sharded mixtral-8x22b launches {n} (expected {expect}); "
+        f"router picks parted at near-ties: {routing.flips}")
+    if n != expect:
+        fails.append(f"sharded mixtral-8x22b launches {n} != {expect}")
+    err = rel_err(got["last"], last)
+    log(f"  prefill (moe_impl dense) last logits {err:.3e}, cache "
+        + ", ".join(f"{k} {rel_err(got['cache'][k], v):.3e}"
+                    for k, v in first.items()))
+    if not err < TOL_SHARDED:
+        fails.append(f"sharded mixtral-8x22b prefill {err:.3e}")
+    held_sharded("sharded mixtral-8x22b decode (EP)", steps, got["steps"],
+                 fails)
+    log(f"  walls: sharded prefill {got['t_pre']:.3f} s, decode step "
+        f"{got['t_step']:.2f} ms (4 thread-ranks sharing one card); "
+        f"one-device prefill {t_pre:.3f} s, step {t_step:.2f} ms [{card}]")
+    del params
+    return n
+
+
+def sharded_main(card: str) -> int:
+    """Phase 13 in the child: llama3.2-3b and mixtral-8x22b (depth 2)
+    served on a (2, 2) mesh of thread-ranks against their one-device
+    runs.  Prints the launch counts by path on a line of their own; exit
+    0 only when every check held."""
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --sharded: torch.cuda.is_available() is false")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.configs import load_all
+    load_all()
+    wrappers, fails, by_path = all_wrappers(), [], {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        log("phase 13: llama3.2-3b (28 layers) on a (2, 2) mesh of thread-"
+            "ranks")
+        by_path["sharded llama3.2-3b"] = sharded_llama(torch, card,
+                                                       wrappers, fails)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 13: mixtral-8x22b (depth {SHARDED_DEPTH}) on the same "
+            f"mesh, decode through moe_ep")
+        by_path["sharded mixtral-8x22b"] = sharded_mixtral(
+            torch, card, wrappers, fails)
+    log(f"  phase 13 max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB [{card}]; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(SHARDED_COUNTS + json.dumps(by_path), flush=True)
+    for f in fails:
+        log(f"  FAILED: {f}")
+    return 1 if fails else 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2901,6 +3258,10 @@ def main() -> int:
     flash_long_shapes(torch, gen_more, kernels[0])
     flash_width_shapes(torch, gen_more, kernels[0])
     paged_g1_shapes(torch, gen_more, kernels[1:3])
+    log("  phase 13's rank-local shapes (a (2, 2) mesh: one row, half the "
+        "heads a rank)")
+    flash_long_shapes(torch, gen_more, kernels[0], FLASH_RANK)
+    paged_g1_shapes(torch, gen_more, kernels[1:3], PAGED_RANK)
     log("phase 3: reference check on small inputs")
     reference_phase(torch, np)
     ssm_reference_phase(torch, np)
@@ -2919,6 +3280,9 @@ def main() -> int:
     log("phase 12: production layouts (the sharding specs on DTensor "
         "meshes; a child process)")
     layouts_phase(card)
+    log("phase 13: sharded serving (4 thread-ranks on the card; a child "
+        "process)")
+    by_path.update(sharded_phase(card))
     for rec in kernels:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in
                                    by_path.items() if n[rec["name"]]}
@@ -2933,4 +3297,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--layouts"]:
         sys.exit(layouts_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded"]:
+        sys.exit(sharded_main(sys.argv[2]))
     sys.exit(main())

@@ -20,6 +20,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
@@ -31,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[tuple, object] = {}
+# the ranks of a threaded world call the wrappers from several threads
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -83,15 +88,38 @@ def function(lib: str, fn: str, argtypes: Sequence):
     """The C function ``fn`` of library ``lib`` with its argument types
     declared; it returns the kernel launch's ``cudaGetLastError()``."""
     key = (lib, fn)
-    if key not in _FUNCS:
-        if lib not in _LIBS:
-            build_all([lib])
-            _LIBS[lib] = ctypes.CDLL(str(library_path(lib)))
-        f = getattr(_LIBS[lib], fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
-        _FUNCS[key] = f
-    return _FUNCS[key]
+    f = _FUNCS.get(key)
+    if f is None:
+        with _BUILD_LOCK:
+            if key not in _FUNCS:
+                if lib not in _LIBS:
+                    build_all([lib])
+                    _LIBS[lib] = ctypes.CDLL(str(library_path(lib)))
+                f = getattr(_LIBS[lib], fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+                _FUNCS[key] = f
+            f = _FUNCS[key]
+    return f
+
+
+def count(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: the ranks of a
+    threaded world launch from several threads at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` on a DTensor: a kernel takes a rank's local
+    shard (``to_local()``).  On the CPU a DTensor would pass the device
+    test and run the plain version under DTensor's sharding propagation,
+    while on the card the kernel would read the local shard's pointer, so
+    the CPU would not check what the card runs."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is not None and any(isinstance(t, mod.DTensor) for t in tensors):
+        raise TypeError(f"{name} takes rank-local tensors, not a DTensor: "
+                        f"pass each rank's shard (to_local())")
 
 
 def refuse_autograd(name: str, *tensors) -> None:

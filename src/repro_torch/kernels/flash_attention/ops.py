@@ -81,6 +81,7 @@ def _check(q, k, v) -> None:
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv).  Returns
     (B, Sq, H, Dv)."""
+    build.refuse_dtensor("flash_prefill", q, k, v)
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal=causal, window=window)
@@ -108,7 +109,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
                            f"in libcuda, -1000 - n CUresult n)")
     if err:
         raise RuntimeError(f"flash_prefill launch failed: CUDA error {err}")
-    flash_prefill.launches += 1
+    build.count(flash_prefill)
     return out
 
 

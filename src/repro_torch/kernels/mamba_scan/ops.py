@@ -172,12 +172,13 @@ def mamba_scan(x, dt, Bc, Cc, A, D, h0=None, *, round_y: bool = False):
     """x, dt: (B, T, di); Bc, Cc: (B, T, ds); A: (di, ds) (already
     -exp(A_log)); D: (di,); h0: (B, di, ds) or None (zeros).  Returns
     (y (B, T, di) f32 without gating, h_T (B, di, ds) f32)."""
+    build.refuse_dtensor("mamba_scan", x, dt, Bc, Cc, A, D, h0)
     if x.device.type == "cpu":
         _check(x, dt, Bc, Cc, A, D, h0)
         return mamba_scan_plain(x, dt, Bc, Cc, A, D, h0, round_y=round_y)
     out = _launch(build.function("mamba_scan", "mamba_scan", _ARGTYPES),
                   x, dt, Bc, Cc, A, D, h0, round_y)
-    mamba_scan.launches += 1
+    build.count(mamba_scan)
     return out
 
 

@@ -155,6 +155,7 @@ def paged_decode(q, k_pool, v_pool, tables, lens, *, window: int = 0):
     """q: (B, H, dh); pools: (num_blocks, block, K, dh); tables: (B, nb)
     int32; lens: (B,) int32 token counts including the current token.
     Returns (B, H, dh)."""
+    build.refuse_dtensor("paged_decode", q, k_pool, v_pool, tables, lens)
     B, H, dh = q.shape
     num_blocks, block, K, _ = k_pool.shape
     if v_pool.shape != k_pool.shape or k_pool.shape[3] != dh or H % K \
@@ -186,7 +187,7 @@ def paged_decode(q, k_pool, v_pool, tables, lens, *, window: int = 0):
                        splits, 1.0 / math.sqrt(dh))
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
-    paged_decode.launches += 1
+    build.count(paged_decode)
     return out
 
 
@@ -194,6 +195,8 @@ def paged_append(k_pool, v_pool, k_new, v_new, block_ids, offsets):
     """Write row b's k_new/v_new (B, K, dh) into the pools
     (num_blocks, block, K, dh) at (block_ids[b], offsets[b]), in place;
     out-of-range rows are dropped.  Returns (k_pool, v_pool)."""
+    build.refuse_dtensor("paged_append", k_pool, v_pool, k_new, v_new,
+                         block_ids, offsets)
     num_blocks, block, K, dh = k_pool.shape
     B = k_new.shape[0]
     if v_pool.shape != k_pool.shape or k_new.shape != (B, K, dh) \
@@ -217,7 +220,7 @@ def paged_append(k_pool, v_pool, k_new, v_new, block_ids, offsets):
                        num_blocks, block)
     if err:
         raise RuntimeError(f"paged_append launch failed: CUDA error {err}")
-    paged_append.launches += 1
+    build.count(paged_append)
     return k_pool, v_pool
 
 

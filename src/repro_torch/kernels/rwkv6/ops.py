@@ -95,6 +95,7 @@ def wkv6(r, k, v, w, u, state0=None):
     """r, k, v, w: (B, T, H, dh); u: (H, dh); state0: (B, H, dh, dh) or
     None (zeros).  Returns (out (B, T, H, dh) f32, S_T (B, H, dh, dh)
     f32)."""
+    build.refuse_dtensor("wkv6", r, k, v, w, u, state0)
     _check(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state0)
@@ -113,7 +114,7 @@ def wkv6(r, k, v, w, u, state0=None):
                        *r.stride()[:3], *w.stride()[:3])
     if err:
         raise RuntimeError(f"wkv6 launch failed: CUDA error {err}")
-    wkv6.launches += 1
+    build.count(wkv6)
     return out, s_T
 
 

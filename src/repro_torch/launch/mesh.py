@@ -8,6 +8,12 @@ the process group the caller set up.  ``fake_world(n)`` sets up one of
 data: a mesh, its placements and every rank's local shape are real, but
 only rank 0's tensors exist.  It is the counterpart of the reference's
 ``XLA_FLAGS=--xla_force_host_platform_device_count=512`` dry run.
+``threaded_world(n)`` runs ``n`` real ranks as threads of this process on
+torch's threaded process group, whose collectives are plain tensor copies
+and sums: every rank computes, and the ranks may share one device.  It
+holds a sharded model to its one-device run on the CPU, or on one card.
+A production run is one process per card on NCCL, set up by the caller;
+the meshes below are the same either way.
 
 With ``device_type="cuda"`` (the default) and no card a mesh raises;
 nothing falls back to the CPU.
@@ -16,6 +22,8 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -34,6 +42,75 @@ def fake_world(n: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def threaded_world(n: int, timeout: float = 120.0):
+    """A world of ``n`` ranks, each a thread of this process, for the
+    ``with`` block: yields ``run(fn)``, which calls ``fn(rank)`` on every
+    rank's thread inside its own threaded process group (set up before,
+    destroyed after), joins each thread within ``timeout`` seconds and
+    returns the ranks' results in rank order.  The first rank that raises
+    wakes the ranks waiting in a collective (they exit), and ``run``
+    raises its exception; a rank still running at the time limit makes
+    ``run`` raise ``TimeoutError`` rather than wait.  The group and the
+    thread isolation mode it needs are global: both are undone on leaving
+    the block, so a later ``fake_world`` (or any other group) finds none."""
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+    if dist.is_initialized():
+        raise RuntimeError("threaded_world: a process group is already set up")
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    world = mt._install_threaded_pg()
+    if not hasattr(world, "comms"):
+        # some torch releases walk ``_world.comms`` in
+        # ``destroy_process_group`` but give the threaded world none
+        world.comms = []
+    mt.ProcessLocalGroup.reset()
+
+    def run(fn):
+        store = dist.HashStore()
+        results, errors = [None] * n, []
+
+        def worker(rank):
+            try:
+                dist.init_process_group("threaded", rank=rank, world_size=n,
+                                        store=store)
+                try:
+                    results[rank] = fn(rank)
+                finally:
+                    dist.destroy_process_group()
+            except BaseException as e:          # noqa: B036 (SystemExit)
+                errors.append((rank, e))
+                mt.ProcessLocalGroup.exception_handle(e)
+
+        threads = [threading.Thread(target=worker, args=(r,), daemon=True,
+                                    name=f"rank{r}") for r in range(n)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + timeout
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        late = [t.name for t in threads if t.is_alive()]
+        if late:                        # wake the ranks left in a collective
+            mt.ProcessLocalGroup.exception_handle(None)
+            for t in threads:
+                t.join(5.0)
+        mt.ProcessLocalGroup.reset()
+        if late:
+            raise TimeoutError(f"threaded_world: {', '.join(late)} still "
+                               f"running after {timeout} s")
+        # a rank that exits because another one failed raises SystemExit
+        first = [e for _, e in sorted(errors, key=lambda re: re[0])
+                 if not isinstance(e, SystemExit)] or [e for _, e in errors]
+        if first:
+            raise first[0]
+        return results
+
+    try:
+        yield run
+    finally:
+        mt._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
 
 
 def _mesh(shape, axes, device_type: str) -> DeviceMesh:

@@ -18,6 +18,17 @@ plain PyTorch version on a CPU tensor.  The plain attention
 (``decode_attention``, ``paged_kv_gather``, ``expand_kv``) lives beside
 the kernels in ``repro_torch.kernels``.  Projections and the FFN stay
 ``torch.einsum`` / ``matmul``, as the reference leaves them to XLA.
+
+On a mesh (an ``env`` whose ``ShardingEnv`` carries one) the attention,
+FFN and MoE functions of the uniform stack take and return DTensors.  At
+each of the reference's ``env.cs`` points the tensor is redistributed to
+the reference's spec, and each function body is the reference's
+``shard_map`` body (or what GSPMD makes of its einsums) written out on
+each rank's local shards: the kernels are called on local tensors only
+(a wrapper refuses a DTensor), and the collectives are the reference's
+``psum`` / ``all_gather`` / ``psum_scatter`` on the mesh axes' groups, or
+a DTensor redistribute where a layout changes.  With ``env`` None or
+``ShardingEnv(None)`` every function runs the one-device path unchanged.
 """
 from __future__ import annotations
 
@@ -29,6 +40,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import expand_kv, flash_prefill
 from repro_torch.kernels.paged_attention.ops import paged_append, paged_decode
+from repro_torch.models.sharding import (all_gather, axis_index,
+                                         contiguous_strides, psum, spec_of)
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -183,6 +196,151 @@ def seq_scan(step, carry0, xs, *, chunk: int = 64):
     return c, torch.cat(ys)
 
 
+# ---------------------------------------------------------------------------
+# on a mesh: DTensor layouts at the reference's constraint points, and the
+# rank-local bodies between them
+# ---------------------------------------------------------------------------
+def on_mesh(env) -> bool:
+    """True where ``env`` carries a mesh: the model functions then take
+    and return DTensors."""
+    return env is not None and env.mesh is not None
+
+
+def _local(x, env, *wants):
+    """``env.cs(x, *wants)``: the DTensor x laid out as the reference's
+    constraint puts it; returns this rank's shard."""
+    return env.cs(x, *wants).to_local()
+
+
+def shard_of(t, env, wants):
+    """This rank's block of a plain tensor every rank holds whole (token
+    ids, positions, patch embeddings), laid out as spec(``wants``)."""
+    for d, entry in enumerate(env.spec(t.shape, list(wants))):
+        if entry is not None:
+            n = t.shape[d] // env.axis_size(entry)
+            t = t.narrow(d, axis_index(env, entry) * n, n)
+    return t.contiguous()
+
+
+def dt_add(x, y):
+    """x + y of two DTensors laid out alike, shard by shard."""
+    from torch.distributed.tensor import DTensor
+    if tuple(x.placements) != tuple(y.placements):
+        raise ValueError(f"dt_add: {x.placements} and {y.placements}")
+    return DTensor.from_local(x.to_local() + y.to_local(), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _global(t, env, shape, wants, partial=None):
+    """This rank's ``t`` as its shard of the DTensor of global ``shape``
+    laid out as ``env.spec(shape, wants)``; where ``partial`` names a mesh
+    axis, the ranks along it hold addends (a ``psum`` still to come)."""
+    from torch.distributed.tensor import DTensor, Partial
+    pls = list(env.named(shape, wants).placements)
+    if partial is not None and env.axis_sizes.get(partial, 1) > 1:
+        pls[env.mesh.mesh_dim_names.index(partial)] = Partial()
+    return DTensor.from_local(t, env.mesh, pls, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def rowwise(fn, x, *args):
+    """``fn(x, *args)`` for a function that reads each row's last dim
+    whole (a norm).  On a DTensor x: ``fn`` of x's shard and of each
+    DTensor argument whole (a replicated weight), laid out as x."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return fn(x, *args)
+    if any(pl.is_partial() or (isinstance(pl, Shard)
+                               and pl.dim == x.dim() - 1)
+           for pl in x.placements):
+        raise ValueError(f"rowwise: x is laid out as {x.placements}; its "
+                         f"rows must be whole and summed")
+    out = fn(x.to_local(), *(_whole_tensor(a) if isinstance(a, DTensor)
+                             else a for a in args))
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _attn_q_spec(cfg, env):
+    """Shard q heads over 'model' if divisible; otherwise run attention
+    pure-DP with batch over (data x model), as the reference does."""
+    if env.heads_shardable(cfg.n_heads):
+        return (env.batch_axes, None, "model", None)
+    combined = tuple(env.batch_axes) + ("model",)
+    return (combined, None, None, None)
+
+
+def _heads(env, entry, H):
+    """(first, count) of the q heads this rank holds under a heads entry
+    of a spec."""
+    n = env.axis_size(entry)
+    return axis_index(env, entry) * (H // n), H // n
+
+
+def _kv_for_heads(k, v, h0, Hl, H):
+    """The K/V heads (B, S, K, dh) that q heads [h0, h0 + Hl) of H read,
+    so that local q head i reads local kv head i // (Hl / K'), the map the
+    kernels apply: a contiguous run of kv heads where the rank's q heads
+    are whole groups; the one kv head where they sit inside a group;
+    otherwise K/V expanded to H heads and sliced like q (G = 1), as the
+    reference expands them."""
+    K = k.shape[2]
+    G = H // K
+    if Hl == H:
+        return k, v
+    if Hl % G == 0:
+        sl = slice(h0 // G, (h0 + Hl) // G)
+    elif G % Hl == 0:
+        sl = slice(h0 // G, h0 // G + 1)
+    else:
+        return (expand_kv(k, H)[:, :, h0:h0 + Hl].contiguous(),
+                expand_kv(v, H)[:, :, h0:h0 + Hl].contiguous())
+    return k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+
+
+def _q_params(p, env, heads, keys=("wq", "qnorm")):
+    """The local params of the q projection: its weight's heads as the q
+    spec's ``heads`` entry splits them, gathered over FSDP's axis."""
+    out = {}
+    for key in keys:
+        if key in p:
+            w = p[key]
+            out[key] = (_local(w, env, None, heads, None) if w.dim() == 3
+                        else _whole_tensor(w))
+    return out
+
+
+def _whole_tensor(t):
+    """A DTensor whole on this rank (a gather where it is sharded)."""
+    from torch.distributed.tensor import Replicate
+    if all(isinstance(pl, Replicate) for pl in t.placements):
+        return t.to_local()
+    return t.full_tensor()
+
+
+def _whole(p, env, keys):
+    """The named params whole on every rank."""
+    return {k: _local(p[k], env, *[None] * p[k].dim())
+            for k in keys if k in p}
+
+
+def _out_proj(y, w, env, wants, eq="bshx,hxd->bsd"):
+    """The out-projection of y (laid out as spec(``wants``)): each rank's
+    heads times its heads' rows of w (gathered over FSDP's axis), a sum
+    pending over 'model' where the heads are split there.  In f32: the
+    bf16 products are exact there, so the ranks' sum rounds once, where
+    the caller rounds it to the stream's type, as one device rounds the
+    whole contraction once."""
+    heads = env.spec(y.shape, wants)[2]
+    out = torch.einsum(eq, _local(y, env, *wants).float(),
+                       _local(w, env, wants[2], None, None).float())
+    return _global(out, env, (y.shape[0], y.shape[1], w.shape[-1]),
+                   [wants[0], wants[1], None], partial=heads)
+
+
 def gqa_q(x, p, cfg, positions, *, qk_norm: bool = True):
     """The query half of ``gqa_qkv``: q (B,S,H,D) projected, normed where
     ``cfg.qk_norm`` (and ``qk_norm``), roped at ``positions``; contiguous."""
@@ -192,15 +350,42 @@ def gqa_q(x, p, cfg, positions, *, qk_norm: bool = True):
     return apply_rope(q, positions, cfg.rope_theta).contiguous()
 
 
-def gqa_qkv(x, p, cfg, positions):
-    """Project + rope.  Head-factored weights (d,H,dh)/(d,K,dh).
-    Returns q (B,S,H,D), k,v (B,S,K,D), contiguous."""
+def _gqa_kv(x, p, cfg, positions):
     k = torch.einsum("bsd,dkx->bskx", x, p["wk"])
     v = torch.einsum("bsd,dkx->bskx", x, p["wv"])
     if cfg.qk_norm:
         k = rms_norm(k, p["knorm"], cfg.norm_eps)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return gqa_q(x, p, cfg, positions), k.contiguous(), v.contiguous()
+    return k.contiguous(), v.contiguous()
+
+
+def gqa_qkv(x, p, cfg, positions, env=None):
+    """Project + rope.  Head-factored weights (d,H,dh)/(d,K,dh).
+    Returns q (B,S,H,D), k,v (B,S,K,D), contiguous.  On a mesh: DTensors,
+    q laid out as ``_attn_q_spec``, k and v with their batch over the
+    batch axes and every head on every rank (the reference's ``cs``)."""
+    if on_mesh(env):
+        qw = _attn_q_spec(cfg, env)
+        q, k, v = _gqa_qkv_local(x, p, cfg, positions, env)
+        B, S, _ = x.shape
+        return (_global(q, env, (B, S, cfg.n_heads, cfg.head_dim), qw),
+                k, v)
+    k, v = _gqa_kv(x, p, cfg, positions)
+    return gqa_q(x, p, cfg, positions), k, v
+
+
+def _gqa_qkv_local(x, p, cfg, positions, env):
+    """The rank's q (its rows and heads of ``_attn_q_spec``) and the k, v
+    DTensors, for positions (1, S) shared by every row."""
+    B, S, _ = x.shape
+    bt, qw = env.batch_axes, _attn_q_spec(cfg, env)
+    q = gqa_q(_local(x, env, qw[0], None, None),
+              _q_params(p, env, qw[2]), cfg, positions)
+    k, v = _gqa_kv(_local(x, env, bt, None, None),
+                   _whole(p, env, ("wk", "wv", "knorm")), cfg, positions)
+    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
+    return (q, _global(k, env, shape, [bt, None, None, None]),
+            _global(v, env, shape, [bt, None, None, None]))
 
 
 def _attend(q, k, v, *, causal, train, attn_block, window=0):
@@ -215,18 +400,47 @@ def _attend(q, k, v, *, causal, train, attn_block, window=0):
                                    q_block=attn_block, kv_block=attn_block)
 
 
+def _refuse_on_mesh(what: str, env, train=False, other=None):
+    if on_mesh(env) and (train or other is not None):
+        raise NotImplementedError(
+            f"{what} on a mesh: training and cross-attention come with "
+            f"ROADMAP Queue 1 item 3b")
+
+
 def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
                        kv_override=None, train: bool = False,
-                       attn_block: int = 512):
+                       attn_block: int = 512, env=None):
     """Full-sequence attention: prefill through the flash kernel, or with
     ``train`` through ``chunked_attention_train`` (blocks of
     ``attn_block``).  ``kv_override`` (k, v), each (B, Sk, K, dh): a
     cross-attention's keys and values, taken as they are (no rope), while
     q is roped at ``positions``, as the reference does; the projections it
-    replaces are not computed.  Returns (y, k, v)."""
+    replaces are not computed.  Returns (y, k, v).
+
+    On a mesh (prefill only): each rank runs ``flash_prefill`` on its q
+    rows and heads (``_attn_q_spec``) over the kv heads they read
+    (``_kv_for_heads``); y is the out-projection, ``rs_out_proj``'s
+    reduce-scatter onto the sequence under ``opts["rs_matmul"]`` (heads
+    sharded), else a sum pending over 'model'; in f32 (``_out_proj``)."""
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit soft-capping is not "
                                   "ported: the flash kernel has no cap")
+    _refuse_on_mesh("gqa_attention_full", env, train, kv_override)
+    if on_mesh(env):
+        B, S, _ = x.shape
+        H, dh = cfg.n_heads, cfg.head_dim
+        qw = _attn_q_spec(cfg, env)
+        q, k, v = _gqa_qkv_local(x, p, cfg, positions, env)
+        h0, Hl = _heads(env, env.spec((B, S, H, dh), qw)[2], H)
+        kk, vv = _kv_for_heads(_local(k, env, qw[0], None, None, None),
+                               _local(v, env, qw[0], None, None, None),
+                               h0, Hl, H)
+        y = _global(flash_prefill(q, kk, vv, causal=causal,
+                                  window=cfg.sliding_window),
+                    env, (B, S, H, dh), qw)
+        if env.opts.get("rs_matmul") and env.heads_shardable(H):
+            return rs_out_proj(y, p["wo"], env, "bshx,hxd->bsd"), k, v
+        return _out_proj(y, p["wo"], env, qw), k, v
     if kv_override is None:
         q, k, v = gqa_qkv(x, p, cfg, positions)
     else:
@@ -259,22 +473,79 @@ def _contiguous_table(pos):
     return tables, pos + 1
 
 
-def _cache_insert(k_cache, v_cache, k, v, pos):
+def _cache_insert(k_cache, v_cache, k, v, pos, start=None):
     """Write row b's (B, 1, K, dh) k/v into the contiguous caches at
     position ``pos[b]``, in place, through ``paged_append`` (block b,
     offset pos).  The reference's dynamic_update_slice returns new caches
     and clamps a position past the end, where the append would drop it:
-    ``lm.decode_step`` refuses such a position before it gets here."""
+    ``lm.decode_step`` refuses such a position before it gets here.
+
+    With ``start``, the caches are one rank's shard of a sequence split
+    over ranks, holding positions [start, start + their length): a row
+    whose position lies outside gets the drop sentinel (block id B), so
+    only the rank that owns the position writes it."""
     B = k.shape[0]
     ids = torch.arange(B, dtype=torch.int32, device=k.device)
+    if start is not None:
+        own = (pos >= start) & (pos < start + k_cache.shape[1])
+        ids = torch.where(own, ids, B)
+        pos = torch.where(own, pos - start, 0)
     return paged_append(k_cache, v_cache, k[:, 0].contiguous(),
                         v[:, 0].contiguous(), ids, pos)
 
 
-def gqa_attention_decode(x, p, cfg, k_cache, v_cache, pos):
+def sharding_spec(x, env):
+    """The spec a DTensor is laid out as (``sharding.spec_of``)."""
+    return spec_of(env.mesh, x.placements, x.dim())
+
+
+def _cache_layout(cache, env):
+    """(batch entry, sequence entry, first position) of a rank's shard of
+    a (B, max_len, ...) cache DTensor."""
+    spec = sharding_spec(cache, env)
+    n = cache.shape[1] // env.axis_size(spec[1])
+    return spec[0], spec[1], axis_index(env, spec[1]) * n
+
+
+def _decode_rows(x, pos, env, entry):
+    """This rank's rows of the decode input x (B, 1, d) and of pos (B,)
+    under a batch entry."""
+    return _local(x, env, entry, None, None), shard_of(pos, env, [entry])
+
+
+def _gqa_decode_sharded(x, p, cfg, k_cache, v_cache, pos, env):
+    """``gqa_attention_decode`` on a mesh.  Each rank computes the new
+    token's K/V for its cache rows and appends it where its sequence shard
+    holds ``pos`` (the others pass the drop sentinel), gathers the layer's
+    K/V sequence shards for its q rows, and runs ``paged_decode`` on its q
+    rows and heads (``_attn_q_spec``) over the kv heads they read."""
+    B = x.shape[0]
+    H, dh = cfg.n_heads, cfg.head_dim
+    qw = _attn_q_spec(cfg, env)
+    cb, _, start = _cache_layout(k_cache, env)
+    xc, pc = _decode_rows(x, pos, env, cb)
+    k, v = _gqa_kv(xc, _whole(p, env, ("wk", "wv", "knorm")), cfg,
+                   pc[:, None])
+    _cache_insert(k_cache.to_local(), v_cache.to_local(), k, v, pc, start)
+    xq, pq = _decode_rows(x, pos, env, qw[0])
+    q = gqa_q(xq, _q_params(p, env, qw[2]), cfg, pq[:, None])
+    h0, Hl = _heads(env, env.spec((B, 1, H, dh), qw)[2], H)
+    kk, vv = _kv_for_heads(_local(k_cache, env, qw[0], None, None, None),
+                           _local(v_cache, env, qw[0], None, None, None),
+                           h0, Hl, H)
+    y = paged_decode(q[:, 0].contiguous(), kk, vv,
+                     *_contiguous_table(pq), window=cfg.sliding_window)
+    y = _global(y[:, None], env, (B, 1, H, dh), qw)
+    return _out_proj(y, p["wo"], env, qw), k_cache, v_cache
+
+
+def gqa_attention_decode(x, p, cfg, k_cache, v_cache, pos, env=None):
     """One-token decode over contiguous caches (B, max_len, K, dh), updated
     in place.  pos: (B,) int32 position of the new token.  Returns
-    (y, k_cache, v_cache)."""
+    (y, k_cache, v_cache).  On a mesh the caches are DTensors laid out as
+    ``lm.cache_pspecs`` puts them (``_gqa_decode_sharded``)."""
+    if on_mesh(env):
+        return _gqa_decode_sharded(x, p, cfg, k_cache, v_cache, pos, env)
     q, k, v = gqa_qkv(x, p, cfg, pos[:, None])
     k_cache, v_cache = _cache_insert(k_cache, v_cache, k, v, pos)
     y = paged_decode(q[:, 0].contiguous(), k_cache, v_cache,
@@ -320,39 +591,61 @@ def _mla_latent(x, p, cfg, positions):
     return ckv, k_rope
 
 
+def _mla_heads(x, p, cfg, positions, ckv, k_rope):
+    """q, k, v of the heads of ``p["wuq"]`` / ``p["wukv"]`` (all H, or a
+    rank's), k's rope part shared by those heads."""
+    B, S, _ = x.shape
+    nope = cfg.qk_nope_head_dim
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    kv = torch.einsum("bsr,rhx->bshx", ckv, p["wukv"])
+    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(
+        B, S, kv.shape[2], cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, kv[..., nope:].contiguous()
+
+
+_MLA_Q = ("wdq", "q_ln", "wdkv", "kv_ln")
+
+
 def mla_attention_full(x, p, cfg, positions, *, train: bool = False,
-                       attn_block: int = 512):
+                       attn_block: int = 512, env=None):
     """Prefill MLA: the latent expanded to per-head keys and values, k's
     rope part shared by the H heads, causal attention through
     ``flash_prefill`` (with ``train``, ``chunked_attention_train``) at
     query-key width nope + rope and value width v_head_dim.  Returns (y,
-    ckv (B, S, r), k_rope (B, S, rope))."""
-    B, S, _ = x.shape
-    H, nope = cfg.n_heads, cfg.qk_nope_head_dim
-    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    ckv (B, S, r), k_rope (B, S, rope)).
+
+    On a mesh (prefill only) each rank expands its heads of the latent
+    (``_attn_q_spec``: its rows, and its heads where they split over
+    'model') and runs the kernel on them; the latent and rope keys are
+    DTensors of the same rows, y a sum pending over 'model'."""
+    _refuse_on_mesh("mla_attention_full", env, train)
+    if on_mesh(env):
+        B, S, _ = x.shape
+        hw = _attn_q_spec(cfg, env)
+        xl = _local(x, env, hw[0], None, None)
+        lp = {**_whole(p, env, _MLA_Q),
+              **_q_params(p, env, hw[2], ("wuq", "wukv"))}
+        ckv, k_rope = _mla_latent(xl, lp, cfg, positions)
+        q, k, v = _mla_heads(xl, lp, cfg, positions, ckv, k_rope)
+        y = _global(flash_prefill(q, k, v, causal=True), env,
+                    (B, S, cfg.n_heads, cfg.v_head_dim), hw)
+        rows = [hw[0], None, None]
+        return (_out_proj(y, p["wo"], env, hw, "bshv,hvd->bsd"),
+                _global(ckv, env, (B, S, ckv.shape[-1]), rows),
+                _global(k_rope, env, (B, S, k_rope.shape[-1]), rows))
     ckv, k_rope = _mla_latent(x, p, cfg, positions)
-    kv = torch.einsum("bsr,rhx->bshx", ckv, p["wukv"])
-    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(
-        B, S, H, cfg.qk_rope_head_dim)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    v = kv[..., nope:].contiguous()
+    q, k, v = _mla_heads(x, p, cfg, positions, ckv, k_rope)
     y = _attend(q, k, v, causal=True, train=train, attn_block=attn_block)
     return torch.einsum("bshv,hvd->bsd", y, p["wo"]), ckv, k_rope
 
 
-def mla_attention_decode(x, p, cfg, ckv_cache, krope_cache, pos):
-    """Absorbed-matrix MLA decode over the compressed latent cache
-    (B, max_len, r) and rope keys (B, max_len, rope), updated in place:
-    the new entries are written at ``pos`` (B,) int32, then every slot at
-    or before it is attended, in f32 over the upcast cache as the
-    reference computes it.  Returns (y, ckv_cache, krope_cache)."""
-    B, nope = x.shape[0], cfg.qk_nope_head_dim
-    q_nope, q_rope = _mla_q(x, p, cfg, pos[:, None])
-    ckv_new, krope_new = _mla_latent(x, p, cfg, pos[:, None])
-    rows = torch.arange(B, device=x.device)
-    ckv_cache[rows, pos.long()] = ckv_new[:, 0]
-    krope_cache[rows, pos.long()] = krope_new[:, 0]
-    wk_b, wv_b = p["wukv"][..., :nope], p["wukv"][..., nope:]
+def _mla_attend(q_nope, q_rope, ckv_cache, krope_cache, wukv, pos, cfg,
+                dtype):
+    """The absorbed-matrix attention of q's heads over a whole latent
+    cache, in f32: returns y (B, 1, heads, vd) in ``dtype``."""
+    nope = cfg.qk_nope_head_dim
+    wk_b, wv_b = wukv[..., :nope], wukv[..., nope:]
     q_lat = torch.einsum("bxhn,rhn->bhr", q_nope.float(), wk_b.float())
     ckv = ckv_cache.float()
     s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
@@ -360,17 +653,103 @@ def mla_attention_decode(x, p, cfg, ckv_cache, krope_cache, pos):
                         krope_cache.float())) \
         * (1.0 / math.sqrt(nope + cfg.qk_rope_head_dim))
     S = ckv_cache.shape[1]
-    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    valid = torch.arange(S, device=pos.device)[None, :] <= pos[:, None]
     s = s.masked_fill(~valid[:, None, :], NEG_INF)
     o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), ckv)
     o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b.float())
-    y = o[:, None].to(x.dtype)                          # (B, 1, H, vd)
+    return o[:, None].to(dtype)
+
+
+def _mla_decode_sharded(x, p, cfg, ckv_cache, krope_cache, pos, env):
+    """``mla_attention_decode`` on a mesh: the new latent entries written
+    by the rank whose sequence shard holds ``pos`` (an indexed write that
+    keeps the old value on the other rows), the shards gathered for the
+    rank's q rows, its heads attended and projected."""
+    B = x.shape[0]
+    hw = _attn_q_spec(cfg, env)
+    cb, _, start = _cache_layout(ckv_cache, env)
+    xc, pc = _decode_rows(x, pos, env, cb)
+    ckv_new, krope_new = _mla_latent(xc, _whole(p, env, _MLA_Q), cfg,
+                                     pc[:, None])
+    ckv_l, krope_l = ckv_cache.to_local(), krope_cache.to_local()
+    own = (pc >= start) & (pc < start + ckv_l.shape[1])
+    rows = torch.arange(pc.shape[0], device=x.device)
+    off = torch.where(own, pc - start, 0).long()
+    for cache, new in ((ckv_l, ckv_new), (krope_l, krope_new)):
+        cache[rows, off] = torch.where(own[:, None], new[:, 0],
+                                       cache[rows, off])
+    xq, pq = _decode_rows(x, pos, env, hw[0])
+    lp = {**_whole(p, env, _MLA_Q),
+          **_q_params(p, env, hw[2], ("wuq", "wukv"))}
+    q_nope, q_rope = _mla_q(xq, lp, cfg, pq[:, None])
+    y = _mla_attend(q_nope, q_rope,
+                    _local(ckv_cache, env, hw[0], None, None),
+                    _local(krope_cache, env, hw[0], None, None),
+                    lp["wukv"], pq, cfg, x.dtype)
+    y = _global(y, env, (B, 1, cfg.n_heads, cfg.v_head_dim), hw)
+    return (_out_proj(y, p["wo"], env, hw, "bshv,hvd->bsd"), ckv_cache,
+            krope_cache)
+
+
+def mla_attention_decode(x, p, cfg, ckv_cache, krope_cache, pos, env=None):
+    """Absorbed-matrix MLA decode over the compressed latent cache
+    (B, max_len, r) and rope keys (B, max_len, rope), updated in place:
+    the new entries are written at ``pos`` (B,) int32, then every slot at
+    or before it is attended, in f32 over the upcast cache as the
+    reference computes it.  Returns (y, ckv_cache, krope_cache)."""
+    if on_mesh(env):
+        return _mla_decode_sharded(x, p, cfg, ckv_cache, krope_cache, pos,
+                                   env)
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(x, p, cfg, pos[:, None])
+    ckv_new, krope_new = _mla_latent(x, p, cfg, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    ckv_cache[rows, pos.long()] = ckv_new[:, 0]
+    krope_cache[rows, pos.long()] = krope_new[:, 0]
+    y = _mla_attend(q_nope, q_rope, ckv_cache, krope_cache, p["wukv"], pos,
+                    cfg, x.dtype)
     return torch.einsum("bshv,hvd->bsd", y, p["wo"]), ckv_cache, krope_cache
 
 
-def ffn_swiglu(x, p):
-    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+# ---------------------------------------------------------------------------
+# reduce-scatter TP matmul
+# ---------------------------------------------------------------------------
+def rs_out_proj(y, w, env, einsum_str: str):
+    """Tensor-parallel output projection with an explicit reduce-scatter
+    over 'model' onto the SEQUENCE dim, producing the sequence-parallel
+    layout directly: each rank's heads times its rows of w (an FSDP'd w
+    gathered over 'data' first), the partial sums then ``Partial`` ->
+    ``Shard(1)`` on 'model'.  Taken where ``opts["rs_matmul"]`` is set, tp
+    > 1 and tp divides S; otherwise the plain einsum (on a mesh: the same
+    local products, their sum still pending over 'model')."""
+    if not on_mesh(env):
+        return torch.einsum(einsum_str, y, w)
+    bt = env.batch_axes
+    out = _out_proj(y, w, env, [bt, None, "model", None], einsum_str)
+    if env.tp > 1 and y.shape[1] % env.tp == 0 \
+            and env.opts.get("rs_matmul", False):
+        return env.cs(out, bt, "model", None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dense FFN (SwiGLU)
+# ---------------------------------------------------------------------------
+def ffn_swiglu(x, p, env=None):
+    """On a mesh: each rank's rows times its d_ff columns of w1 / w3 (h
+    laid out as the reference's ``cs(h, batch, None, "model")``) and its
+    rows of w2, the weights gathered over FSDP's axis; the sum pending
+    over 'model' where d_ff splits there, in f32 (as ``_out_proj``)."""
+    if not on_mesh(env):
+        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+        return h @ p["w2"]
+    bt = env.batch_axes
+    xl = _local(x, env, bt, None, None)
+    h = F.silu(xl @ _local(p["w1"], env, None, "model")) \
+        * (xl @ _local(p["w3"], env, None, "model"))
+    split = env.spec((*x.shape[:2], p["w1"].shape[-1]), [bt, None, "model"])
+    return _global(h.float() @ _local(p["w2"], env, "model", None).float(),
+                   env, x.shape, [bt, None, None], partial=split[2])
 
 
 # ---------------------------------------------------------------------------
@@ -403,17 +782,213 @@ def moe_dense_ref(x2d, p, cfg):
     return y.to(x2d.dtype)
 
 
-def moe_block(x, p, cfg, impl: str = "dense"):
-    """MoE FFN + optional shared experts.  Only the dense impl is ported;
-    expert parallelism (``moe_ep``) comes with Sharding II (ROADMAP Queue
-    1 item 3)."""
-    if impl != "dense":
-        raise NotImplementedError(f"moe_block impl={impl!r}: only the dense "
-                                  f"impl is ported; moe_ep comes with "
-                                  f"Sharding II (ROADMAP Queue 1 item 3)")
+# ---------------------------------------------------------------------------
+# MoE: capacity-buffer dispatch (expert parallelism), rank-local math
+# ---------------------------------------------------------------------------
+def _dispatch(top_p, top_e, e_start: int, e_local: int, capacity: int):
+    """The reference's static-capacity dispatch of the (token, pick) pairs
+    routed to experts [e_start, e_start + e_local): stably sorted by local
+    expert, so each expert's pairs keep token order, and each expert's
+    first ``capacity`` kept.  Returns (keep, slot, token, weight) in that
+    order; slot ``e_local * capacity`` is the overflow row of the pairs
+    not kept."""
+    T, k = top_e.shape
+    dev = top_e.device
+    flat_e, flat_p = top_e.reshape(-1), top_p.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(k)
+    local = (flat_e >= e_start) & (flat_e < e_start + e_local)
+    loc_e = torch.where(local, flat_e - e_start, e_local)
+    order = torch.sort(loc_e, stable=True).indices
+    s_e, s_t, s_p = loc_e[order], flat_t[order], flat_p[order]
+    counts = torch.bincount(s_e, minlength=e_local + 1)
+    pos = torch.arange(s_e.shape[0], device=dev) \
+        - (torch.cumsum(counts, 0) - counts)[s_e]
+    keep = (pos < capacity) & (s_e < e_local)
+    slot = torch.where(keep, s_e * capacity + pos, e_local * capacity)
+    return keep, slot, s_t, s_p
+
+
+def _buffer(x2d, keep, slot, s_t, e_local: int, capacity: int):
+    """The kept pairs' token rows in their expert's slots:
+    (e_local, capacity, d), empty slots zero."""
+    buf = x2d.new_zeros(e_local * capacity + 1, x2d.shape[1])
+    buf[slot] = torch.where(keep[:, None], x2d[s_t], 0)
+    return buf[:-1].reshape(e_local, capacity, x2d.shape[1])
+
+
+def _combine(out, keep, slot, s_t, s_p, T: int):
+    """Each token's sum of its kept pairs' expert outputs times their
+    weights, in f32: (T, d)."""
+    rows = out.reshape(-1, out.shape[-1])
+    got = torch.where(keep[:, None], rows[slot.clamp(max=rows.shape[0] - 1)],
+                      0)
+    y = torch.zeros(T, rows.shape[-1], dtype=F32, device=rows.device)
+    return y.index_add_(0, s_t, got.float() * s_p[:, None])
+
+
+def _moe_local(x2d, router_w, w1, w3, w2, *, n_experts: int, top_k: int,
+               e_start: int, e_local: int, capacity: int):
+    """Route local tokens to experts [e_start, e_start+e_local) with a
+    static-capacity buffer: the twin of the reference's ``_moe_local``
+    (``repro/models/layers.py:658``), routed by ``moe_router``.  No
+    collectives."""
+    top_p, top_e = moe_router(x2d, router_w, top_k)
+    keep, slot, s_t, s_p = _dispatch(top_p, top_e, e_start, e_local,
+                                     capacity)
+    buf = _buffer(x2d, keep, slot, s_t, e_local, capacity)
+    h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+    out = torch.bmm(h, w2)                              # (e_local, C, d)
+    return _combine(out, keep, slot, s_t, s_p, x2d.shape[0]).to(x2d.dtype)
+
+
+def _maybe_gather(w, axis_name, dim, env, full_dim):
+    """all_gather a weight block along `axis_name` if it was FSDP-sharded."""
+    if axis_name is None or env.axis_sizes.get(axis_name, 1) == 1:
+        return w
+    if w.shape[dim] == full_dim:    # divisibility pruning left it whole
+        return w
+    return all_gather(w, env, axis_name, dim)
+
+
+def _expert_specs(p, env, ep: bool, fullshard: bool):
+    """The wants of (router, w1 and w3, w2) in ``moe_ep``'s body: experts
+    over 'model' (EP), or d_ff over 'model' (d_ff TP), d_model over FSDP's
+    axis; under ``serve_fullshard`` d_model over 'data'.  The d_ff-TP
+    layout with a tp that divides neither E nor d_ff raises: there the
+    reference's spec leaves every expert whole on every shard, and its
+    psum over 'model' returns tp times the output (ROADMAP Queue 3)."""
+    tp_ax, fsdp = env.tp_axis, env.fsdp_axis
+    if fullshard:
+        return [None, None], [tp_ax, "data", None], [tp_ax, None, "data"]
+    if ep:
+        return [fsdp, None], [tp_ax, fsdp, None], [tp_ax, None, fsdp]
+    w1 = [None, fsdp, tp_ax]
+    if env.tp > 1 and env.spec(p["w1"].shape, w1)[2] is None:
+        E, f = p["w1"].shape[0], p["w1"].shape[2]
+        raise ValueError(
+            f"moe_ep: tp {env.tp} divides neither n_experts {E} nor d_ff "
+            f"{f}; the reference's d_ff-TP branch would sum {env.tp} whole "
+            f"copies of the output (ROADMAP Queue 3)")
+    return [fsdp, None], w1, [None, tp_ax, fsdp]
+
+
+def moe_ep(x, p, cfg, env, capacity_factor: float = 1.25):
+    """Expert-parallel MoE over the 'model' axis: the reference's
+    ``moe_ep`` (``repro/models/layers.py:697``), its ``shard_map`` bodies
+    run on each rank's shards.
+
+    Experts shard over 'model' when divisible, summed by a psum over
+    'model'; otherwise every shard computes all experts over a d_ff slice
+    (same psum).  Expert weights are FSDP-sharded over 'data' on d_model
+    and gathered inside the body.  Under ``serve_fullshard`` (EP, a 'data'
+    axis) the tokens are replicated, each rank dispatches its d_model
+    slice, and the partial-d contraction is summed over 'data', the
+    experts over 'model', then the d slices gathered.  Capacity: max(4,
+    ceil(t_local * k / E * capacity_factor)), t_local from the pruned
+    batch spec.  Returns a DTensor laid out as x's batch spec."""
     B, S, d = x.shape
-    y = moe_dense_ref(x.reshape(-1, d), p, cfg).reshape(B, S, d)
+    E, k = cfg.n_experts, cfg.top_k
+    if not on_mesh(env):
+        return moe_dense_ref(x.reshape(-1, d), p, cfg).reshape(B, S, d)
+    ep = env.moe_ep(E)
+    fullshard = bool(env.opts.get("serve_fullshard")) and ep \
+        and "data" in env.axis_sizes
+    tp_ax = env.tp_axis
+    x_spec = env.spec(x.shape, [None if fullshard else env.batch_axes,
+                                None, None])
+    r_w, w1_w, w2_w = _expert_specs(p, env, ep, fullshard)
+    e_local = E // env.tp if ep else E
+    t_local = (B // env.axis_size(x_spec[0])) * S
+    capacity = max(4, int(math.ceil(t_local * k / E * capacity_factor)))
+    xb = _local(x, env, *x_spec)
+    x2 = xb.reshape(-1, d)
+    rw = _local(p["router"], env, *r_w)
+    w1, w3 = (_local(p[n], env, *w1_w) for n in ("w1", "w3"))
+    w2 = _local(p["w2"], env, *w2_w)
+    e0 = axis_index(env, tp_ax) * e_local if ep else 0
+    if fullshard:
+        y2 = _moe_fullshard_body(x2, rw, w1, w3, w2, env, k, e0, e_local,
+                                 capacity)
+    else:
+        fsdp = env.fsdp_axis
+        rw = _maybe_gather(rw, fsdp, 0, env, p["router"].shape[0])
+        w1 = _maybe_gather(w1, fsdp, 1, env, p["w1"].shape[1])
+        w3 = _maybe_gather(w3, fsdp, 1, env, p["w3"].shape[1])
+        w2 = _maybe_gather(w2, fsdp, 2, env, p["w2"].shape[2])
+        y2 = psum(_moe_local(x2, rw, w1, w3, w2, n_experts=E, top_k=k,
+                              e_start=e0, e_local=e_local,
+                              capacity=capacity), env, tp_ax)
+    return _global(y2.reshape(xb.shape), env, x.shape, list(x_spec))
+
+
+def _moe_fullshard_body(x2, rw, w1, w3, w2, env, k, e0, e_local, capacity):
+    """``moe_ep``'s ``serve_fullshard`` body: every token routed on every
+    rank, the rank's d_model slice of each kept pair dispatched to its
+    experts, h summed over 'data' (the weights never move), the f32
+    outputs summed over 'model' and the d slices gathered over 'data'."""
+    T, d = x2.shape
+    d_local = d // env.axis_sizes.get("data", 1)
+    top_p, top_e = moe_router(x2, rw, k)
+    keep, slot, s_t, s_p = _dispatch(top_p, top_e, e0, e_local, capacity)
+    didx = axis_index(env, "data") * d_local
+    buf = _buffer(x2[:, didx:didx + d_local], keep, slot, s_t, e_local,
+                  capacity)
+    h1 = psum(torch.bmm(buf, w1), env, "data")
+    h3 = psum(torch.bmm(buf, w3), env, "data")
+    out = torch.bmm(F.silu(h1) * h3, w2)          # (e_local, C, d_local)
+    y2 = psum(_combine(out, keep, slot, s_t, s_p, T), env, env.tp_axis)
+    return all_gather(y2, env, "data", 1).to(x2.dtype)
+
+
+def _moe_dense_sharded(x, p, cfg, env):
+    """The dense impl on a mesh (the reference's ``moe_block(impl=
+    "dense")``): no capacity.  Each rank computes, for its rows, the
+    experts (or the d_ff slice of every expert) of ``moe_ep``'s layout,
+    the weights gathered over FSDP's axis, gated in f32; the f32 sums are
+    then summed over 'model'."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    ep = env.moe_ep(E)
+    r_w, w1_w, w2_w = _expert_specs(p, env, ep, False)
+    x_spec = env.spec(x.shape, [env.batch_axes, None, None])
+    xb = _local(x, env, *x_spec)
+    x2 = xb.reshape(-1, d)
+    top_p, top_e = moe_router(x2, p["router"].full_tensor(), cfg.top_k)
+    full = [None if a == env.fsdp_axis else a for a in w1_w]
+    w1, w3 = (_local(p[n], env, *full) for n in ("w1", "w3"))
+    w2 = _local(p["w2"], env, *[None if a == env.fsdp_axis else a
+                                for a in w2_w])
+    e_local = w1.shape[0]
+    e0 = axis_index(env, env.tp_axis) * e_local if ep else 0
+    h = F.silu(torch.matmul(x2, w1)) * torch.matmul(x2, w3)
+    y_e = torch.matmul(h, w2)                       # (e_local, T, d)
+    gate = torch.zeros(x2.shape[0], E, dtype=F32, device=x2.device
+                       ).scatter_add_(1, top_e, top_p)[:, e0:e0 + e_local]
+    y = psum(torch.einsum("etd,te->td", y_e.float(), gate), env,
+              env.tp_axis)
+    return _global(y.to(x.dtype).reshape(xb.shape), env, x.shape,
+                   list(x_spec))
+
+
+def moe_block(x, p, cfg, impl: str = "ep", env=None):
+    """MoE FFN + optional shared experts.  Without a mesh every impl is
+    the dense one, as in the reference; on a mesh ``impl="ep"`` is
+    ``moe_ep`` and ``"dense"`` the capacity-free ``_moe_dense_sharded``."""
+    B, S, d = x.shape
+    if not on_mesh(env):
+        y = moe_dense_ref(x.reshape(-1, d), p, cfg).reshape(B, S, d)
+    elif impl == "dense":
+        y = _moe_dense_sharded(x, p, cfg, env)
+    elif impl == "ep":
+        y = moe_ep(x, p, cfg, env)
+    else:
+        raise ValueError(f"moe_block: impl {impl!r} is not 'ep' or 'dense'")
     if cfg.n_shared_experts:
-        y = y + ffn_swiglu(x, {"w1": p["ws1"], "w3": p["ws3"],
-                               "w2": p["ws2"]})
+        shared = ffn_swiglu(x, {"w1": p["ws1"], "w3": p["ws3"],
+                                "w2": p["ws2"]}, env)
+        if on_mesh(env):          # summed, then rounded as on one device
+            shared = env.cs(shared, *sharding_spec(y, env))
+            y = dt_add(y, rowwise(lambda t: t.to(y.dtype), shared))
+        else:
+            y = y + shared
     return y

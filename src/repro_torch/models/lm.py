@@ -42,12 +42,24 @@ reference returns new ones.
 The sharding specs are the reference's: ``param_rules`` /
 ``param_shardings`` for the params, ``abstract_cache`` / ``cache_pspecs``
 for the caches, as ``NamedSharding`` (DTensor placements) on a
-``ShardingEnv``'s mesh.  The entry points above take no ``env``: they run
-on one device.
+``ShardingEnv``'s mesh.  ``prefill``, ``decode_step`` and
+``forward_logits`` take an optional ``env`` after ``cfg``, as the
+reference's do.  Without one (or with ``ShardingEnv(None)``) they run on
+one device.  With a mesh they serve the uniform families (dense, moe,
+vlm, MLA included): params and caches are DTensors laid out by
+``param_shardings`` / ``cache_pspecs`` (``sharding.distribute`` places a
+whole tree), the residual stream is redistributed at the reference's
+``_res_cs`` points, the layers run their shards (``layers``), and the
+logits come back as DTensors laid out as the reference's dry run fixes
+them (batch over the batch axes, vocab over 'model').  The other
+families, ``forward_train`` and ``decode_step_paged`` refuse a mesh,
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
+
+import sys
 
 import numpy as np
 import torch
@@ -57,7 +69,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
-from repro_torch.models.sharding import (ShardingEnv, param_pspecs,
+from repro_torch.models.sharding import (ShardingEnv, axis_index,
+                                         contiguous_strides, param_pspecs,
                                          tree_map_with_path)
 
 F32 = torch.float32
@@ -274,11 +287,62 @@ def params_from_jax(tree, device="cuda"):
     return t.to(device)
 
 
+def _is_dtensor(t) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _shift(pl, by: int):
+    """A placement moved ``by`` tensor dims (a stacking axis added in
+    front, or taken away)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if isinstance(pl, _StridedShard):
+        return _StridedShard(pl.dim + by, split_factor=pl.split_factor)
+    if isinstance(pl, Shard):
+        if pl.dim + by < 0:
+            raise ValueError("a stacked DTensor sharded on its layer axis")
+        return Shard(pl.dim + by)
+    return pl
+
+
+def _as_layers(t, parts):
+    """``parts``, rank-local slices of the stacked DTensor t along its
+    layer axis, as DTensors."""
+    from torch.distributed.tensor import DTensor
+    pls = tuple(_shift(pl, -1) for pl in t.placements)
+    return [DTensor.from_local(part, t.device_mesh, pls, run_check=False,
+                               shape=t.shape[1:], stride=part.stride())
+            for part in parts]
+
+
+def _select(t, i: int):
+    """Layer ``i`` of a stacked leaf (a view; a DTensor's as a DTensor
+    over the view of its shard)."""
+    if _is_dtensor(t):
+        return _as_layers(t, [t.to_local()[i]])[0]
+    return t[i]
+
+
+def _stack(ts):
+    """``torch.stack`` of per-layer leaves; DTensors stacked shard by
+    shard, laid out as their layers with a layer axis in front."""
+    if not _is_dtensor(ts[0]):
+        return torch.stack(ts)
+    from torch.distributed.tensor import DTensor
+    t0 = ts[0]
+    local = torch.stack([t.to_local() for t in ts])
+    return DTensor.from_local(
+        local, t0.device_mesh, tuple(_shift(pl, 1) for pl in t0.placements),
+        run_check=False, shape=torch.Size((len(ts), *t0.shape)),
+        stride=contiguous_strides((len(ts), *t0.shape)))
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked param tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+    return _select(tree, i)
 
 
 def _layers(tree):
@@ -287,6 +351,8 @@ def _layers(tree):
     layers' gradients; indexing layer by layer (``_layer``) would add a
     full-size zero tensor per layer."""
     if not isinstance(tree, dict):
+        if _is_dtensor(tree):
+            return _as_layers(tree, tree.to_local().unbind(0))
         return tree.unbind(0)
     per = {k: _layers(v) for k, v in tree.items()}
     n = len(next(iter(per.values())))
@@ -371,15 +437,53 @@ def param_shardings(cfg: ModelConfig, env: ShardingEnv):
 # ===========================================================================
 # embedding / logits
 # ===========================================================================
-def embed_tokens(params, tokens, cfg):
-    return params["embed"][tokens]
+def embed_tokens(params, tokens, cfg, env=None):
+    """The token embeddings.  On a mesh: each rank looks its rows' ids up
+    in its vocab slice of ``embed`` (zero outside it) and the slices are
+    summed over 'model', exactly (one addend is non-zero): (B, S, d) laid
+    out as (batch axes, None, None)."""
+    if not L.on_mesh(env):
+        return params["embed"][tokens]
+    bt = env.batch_axes
+    ids = (L._local(tokens, env, bt, None) if _is_dtensor(tokens)
+           else L.shard_of(tokens, env, [bt, None]))
+    emb = params["embed"]
+    w = L._local(emb, env, "model", None)
+    v0 = axis_index(env, env.spec(emb.shape, ["model", None])[0]) * w.shape[0]
+    rel = ids.long() - v0
+    hit = (rel >= 0) & (rel < w.shape[0])
+    x = torch.where(hit[..., None], w[rel.clamp(0, w.shape[0] - 1)], 0)
+    shape = (*tokens.shape, emb.shape[1])
+    vocab = env.spec(emb.shape, ["model", None])[0]
+    return env.cs(L._global(x, env, shape, [bt, None, None],
+                            partial=vocab), bt, None, None)
 
 
-def unembed(params, x, cfg):
+def unembed(params, x, cfg, env=None):
     """f32 logits: the operands are upcast before the product, as the
-    reference's ``preferred_element_type=F32`` accumulates in f32."""
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("bsd,dv->bsv", x.float(), w.float())
+    reference's ``preferred_element_type=F32`` accumulates in f32.  On a
+    mesh: each rank's rows times its vocab columns, laid out as
+    ``logits_wants``."""
+    if not L.on_mesh(env):
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        return torch.einsum("bsd,dv->bsv", x.float(), w.float())
+    bt = env.batch_axes
+    xl = L._local(x, env, bt, None, None).float()
+    if cfg.tie_embeddings:
+        out = torch.einsum("bsd,vd->bsv", xl, L._local(
+            params["embed"], env, "model", None).float())
+    else:
+        out = torch.einsum("bsd,dv->bsv", xl, L._local(
+            params["unembed"], env, None, "model").float())
+    return L._global(out, env, (*x.shape[:2], cfg.vocab),
+                     logits_wants(env, bt))
+
+
+def logits_wants(env, batch):
+    """The logits' layout on a mesh, the reference dry run's out sharding:
+    (batch, None, "model"), ``batch`` the batch axes (None under
+    ``serve_fullshard`` decode)."""
+    return [batch, None, "model"]
 
 
 def _xent_chunk(x, labels, w):
@@ -447,15 +551,48 @@ def _attn_kw(opts):
 # ===========================================================================
 # layer stacks
 # ===========================================================================
-def _mlp(h, p, cfg):
+def _mlp(h, p, cfg, env=None):
     """The uniform stack's FFN: the dense-impl MoE where the layer has a
     router, as the reference engine runs it.  The dense impl has no
     capacity, so each token's output depends on that token alone: the
     engine's prefill padding goes through the router too and cannot move
-    a real token's output (the reference relies on the same fact)."""
+    a real token's output (the reference relies on the same fact).  On a
+    mesh the MoE impl is ``env.opts["moe_impl"]`` ("ep" by default), as in
+    the reference."""
     if "router" in p:
+        if L.on_mesh(env):
+            return L.moe_block(h, p, cfg, env.opts.get("moe_impl", "ep"),
+                               env)
         return L.moe_block(h, p, cfg)
-    return L.ffn_swiglu(h, p)
+    return L.ffn_swiglu(h, p, env)
+
+
+def _norm(x, w, cfg):
+    return L.rowwise(L.rms_norm, x, w, cfg.norm_eps)
+
+
+def _res_cs(x, env, sp: bool):
+    """The residual stream's layout at the reference's ``_res_cs`` points:
+    batch over the batch axes, the sequence over 'model' under ``sp``
+    (``pin_bf16`` is the identity here)."""
+    return env.cs(L.pin_bf16(x), env.batch_axes, "model" if sp else None,
+                  None)
+
+
+def _sum_cs(y, x, env, sp: bool):
+    """A sublayer's output at its ``_res_cs`` point: the ranks' pending
+    (f32) sum taken, then rounded to the stream's type, as one device
+    rounds the whole contraction once."""
+    return L.rowwise(lambda t: t.to(x.dtype), _res_cs(y, env, sp))
+
+
+def _pad_seq_local(x, max_len, env, wants):
+    """A (B, S, ...) DTensor whose sequence is whole on every rank, padded
+    with zeros to ``max_len`` and laid out as spec(``wants``)."""
+    xl = _pad_seq(x.to_local(), max_len, 1)
+    spec = L.sharding_spec(x, env)
+    return env.cs(L._global(xl, env, (x.shape[0], max_len, *x.shape[2:]),
+                            list(spec)), *wants)
 
 
 def _uniform_block(x, lp, cfg, positions, opts=None):
@@ -471,26 +608,60 @@ def _uniform_block(x, lp, cfg, positions, opts=None):
     return L.pin_bf16(x + L.pin_bf16(y)), (c1, c2)
 
 
-def _run_uniform(params, x, cfg, positions, opts=None):
+def _uniform_block_sharded(x, lp, cfg, positions, env, max_len):
+    """``_uniform_block`` on a mesh, at the reference's constraint points;
+    the cache entries padded to ``max_len`` and laid out with their
+    sequence over 'model'."""
+    sp = env.opts.get("sp", True)
+    h = _norm(x, lp["ln1"], cfg)
+    attn = L.mla_attention_full if cfg.use_mla else L.gqa_attention_full
+    y, c1, c2 = attn(h, lp["attn"], cfg, positions, env=env)
+    # constrain the contraction OUTPUT (the pending sum lands as a
+    # reduce-scatter into the sequence-parallel layout), then the sum
+    y = _sum_cs(y, x, env, sp)
+    x = _res_cs(L.dt_add(x, y), env, sp)
+    h = _norm(x, lp["ln2"], cfg)
+    y = _sum_cs(_mlp(h, lp["mlp"], cfg, env), x, env, sp)
+    x = _res_cs(L.dt_add(x, y), env, sp)
+    bt = env.batch_axes
+    return x, tuple(_pad_seq_local(c, max_len or c.shape[1], env,
+                                   [bt, "model"] + [None] * (c.dim() - 2))
+                    for c in (c1, c2))
+
+
+def _run_uniform(params, x, cfg, positions, opts=None, env=None,
+                 max_len=None):
     """Returns (x, the stacked cache entries), or (x, None) in training."""
     block = _maybe_remat(_uniform_block, opts)
     c1s, c2s = [], []
     for lp in _layers(params["layers"]):
-        x, (c1, c2) = block(x, lp, cfg, positions, opts)
+        if L.on_mesh(env):
+            x, (c1, c2) = _uniform_block_sharded(x, lp, cfg, positions, env,
+                                                 max_len)
+        else:
+            x, (c1, c2) = block(x, lp, cfg, positions, opts)
         c1s.append(c1)
         c2s.append(c2)
     if opts is not None:
         return x, None
-    return x, (torch.stack(c1s), torch.stack(c2s))
+    return x, (_stack(c1s), _stack(c2s))
 
 
-def _uniform_decode_block(x, lp, c1, c2, cfg, pos):
+def _uniform_decode_block(x, lp, c1, c2, cfg, pos, env=None):
     """Twin of ``_uniform_block`` for one token over a contiguous per-layer
     cache, (B, max_len, K, dh) k and v or MLA's latent (B, max_len, r) and
     rope keys, updated in place, with the same residual-stream rounding
-    points."""
-    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    points.  On a mesh the stream is laid out with its batch over the
+    batch axes at each of them."""
     attn = L.mla_attention_decode if cfg.use_mla else L.gqa_attention_decode
+    if L.on_mesh(env):
+        h = _norm(x, lp["ln1"], cfg)
+        y, c1, c2 = attn(h, lp["attn"], cfg, c1, c2, pos, env=env)
+        x = _res_cs(L.dt_add(x, _sum_cs(y, x, env, False)), env, False)
+        h = _norm(x, lp["ln2"], cfg)
+        y = _sum_cs(_mlp(h, lp["mlp"], cfg, env), x, env, False)
+        return _res_cs(L.dt_add(x, y), env, False)
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     y, c1, c2 = attn(h, lp["attn"], cfg, c1, c2, pos)
     x = L.pin_bf16(x + L.pin_bf16(y))
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -655,20 +826,74 @@ def _assemble_inputs(params, batch, cfg):
     return x, labels, positions
 
 
-def _final(params, x, cfg):
+def _assemble_sharded(params, batch, cfg, env):
+    """``_assemble_inputs`` on a mesh: x (B, P + S, d) laid out as the
+    residual stream, and positions (1, P + S) whole on every rank.  The
+    inputs are tensors every rank holds whole, or DTensors."""
+    bt = env.batch_axes
+    x = embed_tokens(params, batch["tokens"], cfg, env)
+    if cfg.family == "vlm":
+        patches = batch["patches"]
+        patches = (L._local(patches, env, bt, None, None)
+                   if _is_dtensor(patches)
+                   else L.shard_of(patches, env, [bt, None, None])).to(BF16)
+        x = L._global(torch.cat([patches, x.to_local()], dim=1), env,
+                      (x.shape[0], patches.shape[1] + x.shape[1],
+                       x.shape[2]), [bt, None, None])
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None, :]
+    return _res_cs(x, env, env.opts.get("sp", True)), positions
+
+
+def _final(params, x, cfg, env=None):
+    if L.on_mesh(env):
+        return unembed(params, _norm(x, params["final_norm"], cfg), cfg, env)
     return unembed(params, L.rms_norm(x, params["final_norm"], cfg.norm_eps),
                    cfg)
 
 
-def forward_train(params, batch, cfg: ModelConfig, *, opts=None):
+def _last(x, env):
+    """The last position of a (B, S, d) stream: (B, 1, d)."""
+    if not L.on_mesh(env):
+        return x[:, -1:, :]
+    bt = env.batch_axes
+    xl = L._local(x, env, bt, None, None)[:, -1:, :]
+    return L._global(xl, env, (x.shape[0], 1, x.shape[2]), [bt, None, None])
+
+
+# what a mesh does not serve yet, by entry point or family: its ROADMAP
+# Queue 1 item
+MESH_ITEMS = {"forward_train": "3b", "decode_step_paged": "3c",
+              "ssm": "3b", "hybrid": "3b", "audio": "3b"}
+
+
+def check_mesh(cfg: ModelConfig, env, entry: str) -> bool:
+    """True where ``env`` carries a mesh that ``entry`` serves; raises
+    ``NotImplementedError`` naming the ROADMAP item for a mesh it does not
+    (the ssm, hybrid and audio families, training, paged decode).
+    Nothing falls back to an unsharded run."""
+    if not L.on_mesh(env):
+        return False
+    item = MESH_ITEMS.get(entry) or MESH_ITEMS.get(cfg.family)
+    if item:
+        raise NotImplementedError(
+            f"{entry} on a mesh for {cfg.name} ({cfg.family}): this slice "
+            f"serves the uniform families on a mesh; ROADMAP Queue 1 item "
+            f"{item} ports the rest")
+    return True
+
+
+def forward_train(params, batch, cfg: ModelConfig, env=None, *,
+                  opts=None):
     """The training loss: the mean cross-entropy of ``batch["labels"]``
     (B, S) over the causal forward, a scalar f32 tensor under autograd
     (enc-dec: ``frames``, ``tgt_tokens``, ``tgt_labels``).  The twin of the
     reference's ``forward_train`` (``repro/models/lm.py:595``) with no
-    mesh; ``opts`` takes ``TRAIN_OPTS``' keys (``attn_block``,
-    ``loss_chunk``, ``remat``).  No kernel is launched: the kernels have
-    no backward."""
+    mesh (a mesh raises: ROADMAP Queue 1 item 3b); ``opts`` takes
+    ``TRAIN_OPTS``' keys (``attn_block``, ``loss_chunk``, ``remat``).  No
+    kernel is launched: the kernels have no backward."""
     check_family(cfg)
+    check_mesh(cfg, env, "forward_train")
     opts = train_opts(opts)
     if cfg.enc_dec:
         from repro_torch.models import encdec
@@ -684,11 +909,16 @@ def forward_train(params, batch, cfg: ModelConfig, *, opts=None):
     return chunked_xent(params, x, labels, cfg, opts["loss_chunk"])
 
 
-def forward_logits(params, batch, cfg: ModelConfig):
+def forward_logits(params, batch, cfg: ModelConfig, env=None):
     """Full-sequence forward.  batch["tokens"]: (B, S) integer ids, after
     vlm's ``batch["patches"]`` (B, P, d_model).  Returns logits (B, P + S,
-    V) f32 (P = 0 outside vlm)."""
+    V) f32 (P = 0 outside vlm); on a mesh a DTensor laid out as
+    ``logits_wants``."""
     check_family(cfg)
+    if check_mesh(cfg, env, "forward_logits"):
+        x, positions = _assemble_sharded(params, batch, cfg, env)
+        x, _ = _run_uniform(params, x, cfg, positions, env=env)
+        return _final(params, x, cfg, env)
     if cfg.enc_dec:
         from repro_torch.models import encdec
         return encdec.forward_logits(params, batch, cfg)
@@ -786,7 +1016,7 @@ def cache_pspecs(cfg: ModelConfig, env: ShardingEnv, batch: int,
     return tree_map_with_path(spec_of, ab)
 
 
-def prefill(params, batch, cfg: ModelConfig,
+def prefill(params, batch, cfg: ModelConfig, env=None,
             max_len: Optional[int] = None):
     """Full-sequence prefill.  batch["tokens"]: (B, S) integer ids, after
     vlm's ``batch["patches"]`` (B, P, d_model); ``max_len`` counts the
@@ -795,11 +1025,16 @@ def prefill(params, batch, cfg: ModelConfig,
     dense / moe / vlm {"k", "v": (L, B, max_len, K, dh)}, MLA {"ckv",
     "krope"}; ssm {"wkv", "shift_tm", "shift_cm"}; hybrid {"k", "v": (nsb,
     B, max_len, K, dh), "conv", "ssm"}; enc-dec {"k", "v", "cross_k",
-    "cross_v"}."""
+    "cross_v"}.
+
+    On a mesh: the last logits laid out as ``logits_wants``, the cache
+    leaves as ``cache_pspecs(cfg, env, B, max_len)`` lays them out."""
     check_family(cfg)
+    if check_mesh(cfg, env, "prefill"):
+        return _prefill_sharded(params, batch, cfg, env, max_len)
     if cfg.enc_dec:
         from repro_torch.models import encdec
-        return encdec.prefill(params, batch, cfg, max_len)
+        return encdec.prefill(params, batch, cfg, max_len=max_len)
     x, _, positions = _assemble_inputs(params, batch, cfg)
     max_len = max_len or x.shape[1]
     if cfg.family == "ssm":
@@ -817,6 +1052,19 @@ def prefill(params, batch, cfg: ModelConfig,
     return _final(params, x[:, -1:, :], cfg), cache
 
 
+def _prefill_sharded(params, batch, cfg, env, max_len):
+    x, positions = _assemble_sharded(params, batch, cfg, env)
+    B, S = x.shape[:2]
+    max_len = max_len or S
+    x, (c1, c2) = _run_uniform(params, x, cfg, positions, env=env,
+                               max_len=max_len)
+    names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+    specs = cache_pspecs(cfg, env, B, max_len)
+    cache = {n: c.redistribute(env.mesh, specs[n].placements)
+             for n, c in zip(names, (c1, c2))}
+    return _final(params, _last(x, env), cfg, env), cache
+
+
 def _pad_seq(x, max_len, axis):
     if x.shape[axis] == max_len:
         return x
@@ -825,7 +1073,7 @@ def _pad_seq(x, max_len, axis):
     return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
 
-def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
+def decode_step(params, tokens, cache, pos, cfg: ModelConfig, env=None):
     """One decode step.  tokens: (B, 1) ids; pos: an int or (B,) position
     of the new token (after a vlm prefill, counted with its patches);
     cache: ``prefill``'s or ``init_cache``'s, updated in place (the
@@ -837,8 +1085,24 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig):
     attends over every slot; the port's append would drop it.  The serving runtime
     never gets there: a program's context is capped at ``max_len``
     (``workflow/program.py``), so the last decoded token sits at
-    ``max_len - 1``."""
+    ``max_len - 1``.
+
+    On a mesh the cache is ``prefill``'s, or laid out by ``cache_pspecs``
+    (``sharding.distribute``); its shards are updated in place, and the
+    logits are laid out as ``logits_wants`` (batch replicated under
+    ``serve_fullshard``)."""
     check_family(cfg)
+    if check_mesh(cfg, env, "decode_step"):
+        x = embed_tokens(params, tokens, cfg, env)
+        pos = decode_positions(pos, x, cache)
+        c1, c2 = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+        for i in range(cfg.n_layers):
+            x = _uniform_decode_block(
+                x, _layer(params["layers"], i), _select(cache[c1], i),
+                _select(cache[c2], i), cfg, pos, env)
+        bt = None if env.opts.get("serve_fullshard") else env.batch_axes
+        logits = _final(params, x, cfg, env)
+        return env.cs(logits, *logits_wants(env, bt)), cache
     if cfg.enc_dec:
         from repro_torch.models import encdec
         return encdec.decode_step(params, tokens, cache, pos, cfg)
@@ -883,7 +1147,7 @@ def decode_positions(pos, x, cache):
 
 
 def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
-                      block_ids, offsets, cfg: ModelConfig):
+                      block_ids, offsets, cfg: ModelConfig, env=None):
     """One decode step attending over the serving pool's blocks in place.
 
     tokens: (B, 1) ids; k_pool/v_pool: (L, num_blocks, block, K, dh);
@@ -893,8 +1157,10 @@ def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
     drop sentinel).  Covers the uniform GQA-cache families (dense, moe,
     vlm) and refuses MLA and enc-dec, as the reference's does.  The pools
     are updated in place, where the reference returns new arrays.  Returns
-    (logits (B,1,V) f32, k_pool, v_pool)."""
+    (logits (B,1,V) f32, k_pool, v_pool).  A mesh raises (ROADMAP Queue 1
+    item 3c)."""
     check_family(cfg)
+    check_mesh(cfg, env, "decode_step_paged")
     if cfg.family == "ssm" or cfg.attn_period or cfg.use_mla or cfg.enc_dec:
         raise ValueError("paged decode covers the uniform GQA-cache "
                          "families")

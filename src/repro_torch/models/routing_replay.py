@@ -12,6 +12,8 @@ runs' probability difference).  A checking aid: the model itself never
 uses it."""
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.models import layers as L
@@ -33,12 +35,23 @@ class SameRouting:
             return p, e
         self._set(L, "moe_router", rec)
 
-    def replay(self, calls=None):
-        """Replay ``calls`` (the recorded ones where not given)."""
-        queue = list(self.calls if calls is None else calls)
+    def replay(self, calls=None, rows=None):
+        """Replay ``calls`` (the recorded ones where not given).  Each
+        thread takes them in order from its own queue, so the ranks of a
+        threaded world each replay the whole run; ``rows(n, m)`` gives the
+        first of a call's ``n`` recorded token rows that a rank's call of
+        ``m`` rows routes (its batch shard)."""
+        source = list(self.calls if calls is None else calls)
+        mine, lock = threading.local(), threading.Lock()
 
         def rep(x2d, w, k):
-            probs_r, ids_r = (t.to(x2d.device) for t in queue.pop(0))
+            if not hasattr(mine, "queue"):
+                mine.queue = list(source)
+            probs_r, ids_r = (t.to(x2d.device) for t in mine.queue.pop(0))
+            if rows is not None:
+                start = rows(probs_r.shape[0], x2d.shape[0])
+                probs_r = probs_r[start:start + x2d.shape[0]]
+                ids_r = ids_r[start:start + x2d.shape[0]]
             _, own = self.router(x2d, w, k)
             probs = torch.softmax((x2d @ w).float(), -1)
             flip = (own.sort(-1).values != ids_r.sort(-1).values).any(-1)
@@ -50,8 +63,9 @@ class SameRouting:
                     raise AssertionError(f"router pick differs away from a "
                                          f"near-tie: gap {gap.tolist()} vs "
                                          f"difference {diff.tolist()}")
-                self.flips += int(flip.sum())
-                self.gaps += gap.tolist()
+                with lock:
+                    self.flips += int(flip.sum())
+                    self.gaps += gap.tolist()
             top_p = probs.gather(1, ids_r)
             return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), ids_r
         self._set(L, "moe_router", rep)

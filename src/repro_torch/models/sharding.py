@@ -128,6 +128,37 @@ def _check_jax_order(sizes: Tuple[int, ...], dims: Tuple[int, ...]) -> None:
                 f"order puts block {want} (mesh {sizes}, dims {dims})")
 
 
+def spec_of(mesh, pls, ndim: int) -> P:
+    """The spec whose ``placements`` on ``mesh`` are ``pls``: the inverse
+    of ``placements``, a tensor dim over two or more mesh axes read back
+    in the major-first order that gives the same placements."""
+    names = tuple(mesh.mesh_dim_names)
+    per_dim = [[] for _ in range(ndim)]
+    for m, pl in enumerate(pls):
+        if pl.is_replicate():
+            continue
+        if not pl.is_partial() and isinstance(getattr(pl, "dim", None), int):
+            per_dim[pl.dim].append(names[m])     # Shard or _StridedShard
+        else:
+            raise ValueError(f"spec_of: {pl} on mesh axis {names[m]!r} is "
+                             "not a layout (reduce it first)")
+    out = []
+    for d, axes in enumerate(per_dim):
+        if len(axes) <= 1:
+            out.append(axes[0] if axes else None)
+            continue
+        for order in itertools.permutations(axes):
+            want = placements(mesh, [None] * d + [order])
+            if all(type(want[m]) is type(pls[m]) and want[m] == pls[m]
+                   for m in map(names.index, axes)):
+                out.append(order)
+                break
+        else:
+            raise ValueError(f"spec_of: no axis order of {axes} gives "
+                             f"{pls}")
+    return P(*out)
+
+
 class NamedSharding:
     """A spec on a mesh: ``placements`` holds one DTensor placement per
     mesh dim (the reference's ``jax.sharding.NamedSharding``)."""
@@ -161,6 +192,7 @@ class ShardingEnv:
         # forward-pass options: attn_mode (full|tri), moe_impl (ep|dense),
         # remat (bool), remat_policy (full|dots), sp (bool), loss_chunk (int)
         self.opts = dict(opts or {})
+        self._named = {}
         if mesh is not None:
             if mesh.mesh_dim_names is None:
                 raise ValueError("ShardingEnv needs a mesh with "
@@ -234,21 +266,39 @@ class ShardingEnv:
         return P(*out)
 
     def named(self, dims: Sequence[int], wants: Sequence[AxisEntry]):
+        """The ``NamedSharding`` of ``spec(dims, wants)`` (None without a
+        mesh), made once per spec: the sharded model asks for the same
+        ones at every layer and step."""
         if self.mesh is None:
             return None
-        return NamedSharding(self.mesh, self.spec(dims, wants))
+        spec = self.spec(dims, wants)
+        sh = self._named.get(spec)
+        if sh is None:
+            sh = self._named[spec] = NamedSharding(self.mesh, spec)
+        return sh
 
     def cs(self, x, *wants: AxisEntry):
         """Redistribute a DTensor to the divisibility-checked spec (the
-        reference's ``with_sharding_constraint``)."""
+        reference's ``with_sharding_constraint``).  A change that only
+        sums, gathers or cuts whole dims (``_direct``) runs as those
+        collectives on x's shard, past DTensor's ``redistribute``: the
+        sharded decode is host-bound, and that machinery costs several
+        times the collective."""
         if self.mesh is None:
             return x
         from torch.distributed.tensor import DTensor
         if not isinstance(x, DTensor):
             raise TypeError(f"ShardingEnv.cs takes a DTensor on a mesh, "
                             f"not {type(x).__name__}")
-        sh = self.named(x.shape, list(wants))
-        return x.redistribute(self.mesh, sh.placements)
+        target = self.named(x.shape, list(wants)).placements
+        if tuple(x.placements) == target:
+            return x
+        local = _direct(x, self, target)
+        if local is None:
+            return x.redistribute(self.mesh, target)
+        return DTensor.from_local(local, self.mesh, target, run_check=False,
+                                  shape=x.shape,
+                                  stride=contiguous_strides(x.shape))
 
     # -- family decisions --------------------------------------------
     def heads_shardable(self, n_heads: int) -> bool:
@@ -257,6 +307,78 @@ class ShardingEnv:
     def moe_ep(self, n_experts: int) -> bool:
         """True -> expert-parallel over 'model'; False -> d_ff TP."""
         return self.tp > 1 and n_experts % self.tp == 0
+
+
+def axis_index(env: ShardingEnv, entry: AxisEntry) -> int:
+    """The block of a dim split over ``entry``'s mesh axes that this rank
+    holds, in JAX's order: the axes' coordinates read as one mixed-radix
+    number, major first."""
+    i = 0
+    for a in _axes(entry):
+        i = i * env.axis_sizes[a] + env.mesh.get_local_rank(a)
+    return i
+
+
+def psum(t, env: ShardingEnv, axis: Optional[str]):
+    """``lax.psum`` of a rank's tensor over mesh axis ``axis`` (a new
+    tensor)."""
+    import torch
+    import torch.distributed as dist
+    if axis is None or env.axis_sizes.get(axis, 1) == 1:
+        return t
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=env.mesh.get_group(axis))
+    return out
+
+
+def all_gather(t, env: ShardingEnv, axis: str, dim: int):
+    """``lax.all_gather(t, axis, axis=dim, tiled=True)``: the ranks'
+    blocks along ``dim`` in the axis' order."""
+    import torch.distributed as dist
+    n = env.axis_sizes.get(axis, 1)
+    if n == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, x, group=env.mesh.get_group(axis))
+    return out.movedim(0, dim)
+
+
+def _direct(x, env: ShardingEnv, target):
+    """x's shard laid out as ``target``, where each mesh dim that changes
+    goes from a partial sum to Replicate or Shard(d) (a psum, then a cut),
+    from Shard(d) to Replicate (an all-gather over its axis) or from
+    Replicate to Shard(d) (a cut of this rank's block), and no tensor dim
+    is split by two mesh dims before or after: the sums first, then the
+    gathers, then the cuts.  None for any other change (a strided shard,
+    a dim over two axes): DTensor's redistribute takes those."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    src = tuple(x.placements)
+    for pls in (src, target):
+        dims = [pl.dim for pl in pls if isinstance(pl, Shard)]
+        if len(dims) != len(set(dims)) or any(
+                type(pl) not in (Shard, Replicate, Partial) for pl in pls):
+            return None
+    if any(isinstance(pl, Partial) for pl in target) or any(
+            isinstance(pl, Partial) and pl.reduce_op != "sum" for pl in src):
+        return None
+    t = x.to_local()
+    names = env.mesh.mesh_dim_names
+    for m, a in enumerate(src):
+        if isinstance(a, Partial):
+            t = psum(t, env, names[m])
+    for m, (a, b) in enumerate(zip(src, target)):
+        if isinstance(a, Shard) and a != b:
+            if not isinstance(b, Replicate):
+                return None
+            t = all_gather(t, env, names[m], a.dim)
+    for m, (a, b) in enumerate(zip(src, target)):
+        if isinstance(b, Shard) and a != b:
+            n = t.shape[b.dim] // env.axis_sizes[names[m]]
+            t = t.narrow(b.dim, env.mesh.get_local_rank(names[m]) * n, n)
+    return t.contiguous()
 
 
 def tree_map_with_path(fn, tree, path=()):
@@ -280,3 +402,34 @@ def param_pspecs(abstract_params, env: ShardingEnv, rules):
         return env.named(leaf.shape, wants)
 
     return tree_map_with_path(visit, abstract_params)
+
+
+def distribute(tree, shardings):
+    """Every leaf of a nested dict (each rank holding it whole) as the
+    DTensor its ``NamedSharding`` in ``shardings`` lays out: each rank
+    copies its own block out of its own whole tensor (no data moves), so
+    no two ranks share memory and a cache can be updated in place."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pls = shardings.mesh, shardings.placements
+    shape, offset = compute_local_shape_and_global_offset(tree.shape, mesh,
+                                                          pls)
+    local = tree[tuple(slice(o, o + n) for o, n in zip(offset, shape))
+                 ].clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=tree.shape,
+                              stride=contiguous_strides(tree.shape))
+
+
+def contiguous_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``: a DTensor's global
+    strides."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))

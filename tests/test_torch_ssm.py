@@ -255,8 +255,8 @@ def test_moe_block_dense_matches_jax():
     yj = jl.moe_block(xj, lj, cj, ENV, impl="dense")
     yt = tl.moe_block(xt, lt, ct)
     assert yt.dtype == torch.bfloat16 and _err(yt, yj) < TOL
-    with pytest.raises(NotImplementedError, match="dense impl"):
-        tl.moe_block(xt, lt, ct, impl="ep")
+    # without a mesh every impl is the dense one, as in the reference
+    assert torch.equal(tl.moe_block(xt, lt, ct, impl="ep"), yt)
 
 
 def test_moe_router_top_k_agrees_away_from_near_ties():

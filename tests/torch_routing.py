@@ -24,6 +24,8 @@ made for the same router input and weight without taking another: the
 port's ``torch.utils.checkpoint`` (remat) calls the router again in the
 backward.  A remat reference records each call twice, the forward's
 first, so the port's forward takes the first half in order."""
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,9 +37,22 @@ from repro_torch.models import lm as tlm
 
 
 class SameRouting:
-    def __init__(self, monkeypatch, traced=False):
+    """``rows`` (a sharded port run in a threaded world): each rank thread
+    replays every recorded call from its own queue, taking the token rows
+    ``rows(n, m)`` .. + m of a call of ``n`` recorded rows where its own
+    call routes ``m`` (its batch shard)."""
+
+    def __init__(self, monkeypatch, traced=False, rows=None):
         self.calls, self.flips, held = [], 0, {}
         j_router, t_router = jl.moe_router, tl.moe_router
+        mine, lock = threading.local(), threading.Lock()
+
+        def take():
+            if rows is None:
+                return self.calls.pop(0)
+            if not hasattr(mine, "queue"):
+                mine.queue = list(self.calls)
+            return mine.queue.pop(0)
 
         def record(x2d, w, k):
             p, e = j_router(x2d, w, k)
@@ -54,8 +69,12 @@ class SameRouting:
             if traced and key in held:
                 probs_j, ids_j = held[key]
             else:
-                probs_j, ids_j = self.calls.pop(0)
+                probs_j, ids_j = take()
                 held[key] = probs_j, ids_j
+            if rows is not None:
+                start = rows(probs_j.shape[0], x2d.shape[0])
+                probs_j = probs_j[start:start + x2d.shape[0]]
+                ids_j = ids_j[start:start + x2d.shape[0]]
             _, own = t_router(x2d, w, k)
             probs = torch.softmax((x2d @ w).float(), dim=-1)
             assert probs.shape == probs_j.shape, "router calls out of step"
@@ -66,7 +85,8 @@ class SameRouting:
                 gap = srt[:, k - 1] - srt[:, k]
                 diff = np.abs(p_own[flip] - probs_j[flip]).max(-1)
                 assert (gap < 4 * diff).all(), (gap, diff)
-                self.flips += int(flip.sum())
+                with lock:
+                    self.flips += int(flip.sum())
             ids = torch.from_numpy(ids_j).long()
             top_p = probs.gather(1, ids)
             return top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), ids
@@ -111,15 +131,9 @@ class SameArgmax:
             ref = self.logits.pop(0)
             own = out[0][:, 0].float().numpy()
             assert own.shape == ref.shape, "decode calls out of step"
-            diff = np.abs(own - ref).max(-1)
-            top = np.maximum(1.0, np.abs(ref).max(-1))
-            assert (diff < self.tol * top).all(), (diff, top)
-            part = own.argmax(-1) != ref.argmax(-1)
+            part = parted_argmax(own, ref, self.tol)
             if not part.any():
                 return out
-            top2 = -np.sort(-ref[part], axis=-1)[:, :2]
-            gap = top2[:, 0] - top2[:, 1]
-            assert (gap < diff[part]).all(), (gap, diff[part])
             self.flips += int(part.sum())
             assert self.flips <= self.max_flips, self.flips
             logits = out[0].clone()
@@ -127,3 +141,21 @@ class SameArgmax:
                 ref[part]).to(logits.dtype)
             return (logits, *out[1:])
         return call
+
+
+def parted_argmax(own, ref, tol=2e-2):
+    """Rows of logits (..., V) held to the reference's: each row within
+    ``tol`` of ``ref`` relative to its largest magnitude where that passes
+    1, and each row whose greedy pick differs a near-tie of the reference
+    (its top-2 gap below the row's largest difference).  Returns the mask
+    of the rows whose pick differs."""
+    own = np.asarray(own, np.float32).reshape(-1, own.shape[-1])
+    ref = np.asarray(ref, np.float32).reshape(-1, ref.shape[-1])
+    diff = np.abs(own - ref).max(-1)
+    top = np.maximum(1.0, np.abs(ref).max(-1))
+    assert (diff < tol * top).all(), (diff, top)
+    part = own.argmax(-1) != ref.argmax(-1)
+    top2 = -np.sort(-ref[part], axis=-1)[:, :2]
+    gap = top2[:, 0] - top2[:, 1]
+    assert (gap < diff[part]).all(), (gap, diff[part])
+    return part
