@@ -463,7 +463,17 @@ def flash_long_shapes(torch, gen, rec, cases=FLASH_LONG):
             f"({by})")
 
 
-def flash_width_shapes(torch, gen, rec):
+FLASH_WIDTH = [
+    ("deepseek-v2 MLA prefill", 2, 1024, 1024, 128, 128, 192, 128, True),
+    ("seamless encoder", 4, 1024, 1024, 16, 16, 64, 64, False),
+    ("seamless cross-attention", 4, 256, 1024, 16, 16, 64, 64, False)]
+# phase 14's rank-local seamless encoder on its (2, 2) mesh: one row of
+# 1024 frames and 8 of the 16 heads a rank
+FLASH_REST = [("rank-local seamless encoder (2, 2)", 1, 1024, 1024, 8, 8,
+               64, 64, False)]
+
+
+def flash_width_shapes(torch, gen, rec, cases=FLASH_WIDTH):
     """Flash prefill at phases 9-10's shapes, drawn from ``gen`` after the
     long shapes' draws: deepseek-v2's MLA prefill (B=2, S=1024, H=K=128,
     query-key width 192 over value width 128, causal), seamless's encoder
@@ -477,12 +487,7 @@ def flash_width_shapes(torch, gen, rec):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
                                 dtype=torch.float32).to(torch.bfloat16)
-    for label, B, Sq, Sk, H, K, D, Dv, causal in [
-            ("deepseek-v2 MLA prefill", 2, 1024, 1024, 128, 128, 192, 128,
-             True),
-            ("seamless encoder", 4, 1024, 1024, 16, 16, 64, 64, False),
-            ("seamless cross-attention", 4, 256, 1024, 16, 16, 64, 64,
-             False)]:
+    for label, B, Sq, Sk, H, K, D, Dv, causal in cases:
         q, k, v = mk(B, Sq, H, D), mk(B, Sk, K, D), mk(B, Sk, K, Dv)
         run = lambda: F.flash_prefill(q, k, v, causal=causal)  # noqa
         out = run()
@@ -659,6 +664,15 @@ PAGED_RANK = [
      True, False),
     ("rank-local mixtral-8x22b (2, 2)", 1, 24, 4, 128, 1040, 1, [1040],
      4096, True, False)]
+
+
+# phase 14's rank-local engine round: llama3.2-3b's engine on the (2, 2)
+# mesh, 2 of its 4 slots a rank (one live row of 1152 tokens, one idle on
+# a zero table), 12 q heads over the pool's 4 kv heads a rank, max_len
+# 2048 in blocks of 16 (nb 128); the append first
+PAGED_REST = [
+    ("rank-local engine llama3.2-3b (2, 2)", 2, 12, 4, 128, 16, 128,
+     [1152, 1], 0, True, False)]
 
 
 def paged_more_shapes(torch, gen, errs, cases=PAGED_MORE):
@@ -965,6 +979,79 @@ def mamba_phase(torch, gen):
     rec["more_shapes"][0]["sfu_floor_ms"] = sfu_floor_ms(torch, B * di * ds)
     rec["max_abs_err"] = max(errs)
     return rec
+
+
+def scan_rank_shapes(torch, gen, wkv_rec, mamba_rec):
+    """wkv6 and mamba_scan at phase 14's rank-local shapes on its (2, 2)
+    mesh, drawn from ``gen``: rwkv6-7b's 32 of 64 heads for one row
+    (B=1, H=32, dh=64) and jamba's 4096 of 8192 channels (B=1, di=4096,
+    ds=16), each at the prefill's T=1024 (zero state; mamba's h.C
+    rounded) and a decode step's T=1 (a state in).  Checked as
+    ``wkv6_phase`` / ``mamba_phase`` check theirs, timed beside the plain
+    version and the bound (``decode_time``), added to the records'
+    ``more_shapes`` and ``max_abs_err``."""
+    from repro_torch.kernels.mamba_scan import ops as M
+    from repro_torch.kernels.rwkv6 import ops as R
+
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    B, H, dh = 1, 32, 64
+    for T, state in ((1024, False), (1, True)):
+        r, k, v = ((mk(B, T, H, dh) * 0.5).to(torch.bfloat16)
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(-5 + 8 * torch.rand(
+            B, T, H, dh, generator=gen, device="cuda")))
+        args = (r, k, v, w, mk(H, dh) * 0.3,
+                mk(B, H, dh, dh) if state else None)
+        out, s_T = R.wkv6(*args)
+        torch.cuda.synchronize()
+        ref, ref_T = R.wkv6_plain(*args)
+        shape = (f"rank-local rwkv6-7b (2, 2): B={B} T={T} H={H} dh={dh} "
+                 + ("state in" if state else "zero state"))
+        err = check(f"wkv6 {shape} (out, S_T)",
+                    max(rel_err(out, ref), rel_err(s_T, ref_T)), tol=TOL_SCAN)
+        wkv_rec["max_abs_err"] = max(wkv_rec["max_abs_err"], err)
+        nbytes = (B * T * H * dh * (3 * 2 + 4 + 4) + H * dh * 4
+                  + (1 + state) * B * H * dh * dh * 4)
+        wkv_rec["more_shapes"].append(decode_time(
+            torch, lambda: R.wkv6(*args), lambda: R.wkv6_plain(*args),
+            "wkv6_kernel", shape, nbytes, B * T * H * dh * (5 * dh + 5)))
+    di, ds, dtr = 4096, 16, 256
+    for T, state in ((1024, False), (1, True)):
+        x = mk(B, T, di).to(torch.bfloat16)
+        dt = torch.nn.functional.softplus(mk(B, T, di) - 3).to(torch.bfloat16)
+        dbc = mk(B, T, dtr + 2 * ds).to(torch.bfloat16)
+        A = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda"
+                          ).expand(di, ds).contiguous()
+        args = (x, dt, dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:], A,
+                torch.ones(di, device="cuda"),
+                mk(B, di, ds) * 0.5 if state else None)
+        rnd = not state
+        y, h_T = M.mamba_scan(*args, round_y=rnd)
+        torch.cuda.synchronize()
+        ref, ref_T = M.mamba_scan_plain(*args, round_y=rnd)
+        shape = (f"rank-local jamba (2, 2): B={B} T={T} di={di} ds={ds} "
+                 + ("state in" if state else "zero state, round_y"))
+        if rnd:
+            steps, share = M.rounding_errs(y, ref, *args)
+            check(f"mamba_scan {shape} (y: bf16 steps of h.C past the f32 "
+                  f"slack)", steps, tol=M.ROUND_STEPS)
+            check(f"mamba_scan {shape} (y: share off the plain version)",
+                  share, tol=M.ROUND_SHARE)
+            errs = [rel_err(y, ref)]
+        else:
+            errs = [check(f"mamba_scan {shape} (y)", rel_err(y, ref),
+                          tol=TOL_SCAN)]
+        errs.append(check(f"mamba_scan {shape} (h_T)", rel_err(h_T, ref_T),
+                          tol=TOL_SCAN))
+        mamba_rec["max_abs_err"] = max([mamba_rec["max_abs_err"], *errs])
+        nbytes = (B * T * di * (2 + 2 + 4) + 2 * B * T * ds * 2
+                  + di * ds * 4 + di * 4 + (1 + state) * B * di * ds * 4)
+        rec = decode_time(
+            torch, lambda: M.mamba_scan(*args, round_y=rnd),
+            lambda: M.mamba_scan_plain(*args, round_y=rnd),
+            "mamba_scan_kernel", shape, nbytes, B * T * di * (7 * ds + 3))
+        rec["sfu_floor_ms"] = sfu_floor_ms(torch, B * T * di * ds)
+        mamba_rec["more_shapes"].append(rec)
 
 
 # ---------------------------------------------------------------------------
@@ -3192,6 +3279,641 @@ def sharded_main(card: str) -> int:
     return 1 if fails else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 14: sharded serving II -- rwkv6-7b, jamba and seamless-m4t on the
+# mesh, and the engine (Engine(env=mesh)) over its sharded pool
+# ---------------------------------------------------------------------------
+# The mesh, the ranks and the options are phase 13's (a child process, 4
+# thread-ranks sharing one card).  The limit on every step's logits is
+# TOL_SHARDED for these families too (PERF.md, phase 14's prediction); the
+# first layer's carried states (rwkv6's wkv and shifts, jamba's conv, ssm,
+# k and v, seamless's self cache), which a step computes from its token's
+# embedding through one layer, are held to TOL_STATE, as paths A and B and
+# phase 10 hold theirs against the forward.  Seamless's cross caches are
+# projections of the whole encoder's output (24 layers deep, sharded as
+# the stack that makes the logits), so they are held to TOL_SHARDED: on
+# the first full run (NVIDIA H100 80GB HBM3, 700.00 W) they read 2.64e-2
+# of their largest magnitude beside the prefill's logits at 2.12e-2.
+DEEP_STATES = ("cross_k", "cross_v")
+REST_B, REST_S, REST_STEPS = 2, 1024, 16
+REST_DEPTH = 8                    # rwkv6-7b 32, jamba 32, llama3.2-3b 28
+REST_FRAMES, REST_TGT, REST_ENCDEC_STEPS = 1024, 256, 8
+REST_COUNTS = "SHARDED_REST_LAUNCHES "
+
+
+def rest_phase(card: str) -> dict:
+    """Phase 14: ``rest_main`` in a child process; its output is echoed,
+    and its launch counts by path (a line of their own) returned.  Fails
+    unless the child exits 0."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--sharded-rest", card], timeout=600,
+                         stdout=subprocess.PIPE, text=True)
+    counts_ = None
+    for line in res.stdout.splitlines():
+        if line.startswith(REST_COUNTS):
+            counts_ = json.loads(line[len(REST_COUNTS):])
+        else:
+            log(line)
+    log(f"  phase 14 wall with the child's start "
+        f"{time.perf_counter() - t0:.1f} s")
+    if res.returncode or counts_ is None:
+        raise AssertionError(f"phase 14 (sharded serving II) failed: exit "
+                             f"{res.returncode}")
+    return counts_
+
+
+def rest_one_device(torch, lm, cfg, params, batch, S, max_len, steps,
+                    routing=None):
+    """The one-device run: ``lm.prefill`` then ``steps`` greedy
+    ``lm.decode_step``s, after an unmeasured prefill and step.  Returns
+    {"last", "first" (the prefill's cache, a copy), "steps" (each step's
+    logits), "ids", "step0" (the cache after the first step, a copy),
+    "after" (the cache after the steps), "t_pre" s, "t_step" ms}."""
+    last, cache = lm.prefill(params, batch, cfg, max_len=max_len)
+    lm.decode_step(params, last.argmax(-1).to(torch.int32), cache, S, cfg)
+    del last, cache
+    if routing:
+        routing.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = lm.prefill(params, batch, cfg, max_len=max_len)
+    torch.cuda.synchronize()
+    out = {"t_pre": time.perf_counter() - t0, "last": last,
+           "first": _clone(cache), "steps": [], "ids": []}
+    tok = last.argmax(-1).to(torch.int32)
+    t0 = time.perf_counter()
+    for t in range(steps):
+        out["ids"].append(tok)
+        lg, cache = lm.decode_step(params, tok, cache, S + t, cfg)
+        out["steps"].append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+        if t == 0:
+            out["step0"] = _clone(cache)
+    torch.cuda.synchronize()
+    out["t_step"] = (time.perf_counter() - t0) / steps * 1e3
+    out["after"] = cache
+    return out
+
+
+def other_shard(t, whole, dim):
+    """Rank 1's planted fault: its shard of the cache DTensor ``t``
+    overwritten with the block of ``whole`` (the same cache, whole) that
+    the other 'model' coordinate holds along ``dim``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if dist.get_rank() != 1:
+        return
+    shape, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    off = list(off)
+    off[dim] = (off[dim] + shape[dim]) % t.shape[dim]
+    t.to_local().copy_(whole[tuple(slice(o, o + n)
+                                   for o, n in zip(off, shape))])
+
+
+def rest_sharded(torch, cfg, held, batch, S, max_len, one, wrappers, *,
+                 steps, moe_impl=None, plant=None, src_len=None,
+                 routing=None, swap=None):
+    """One world of 4 thread-ranks: the params (``held["params"]``, the
+    one reference to them) distributed by their specs (the whole tree then
+    dropped), the sharded ``lm.prefill`` (under
+    ``moe_impl`` where given) and ``steps`` ``lm.decode_step``s
+    teacher-forced with the one-device ids, its launches counted from 0;
+    then, as a planted fault, one step from the one-device prefill's cache
+    distributed by ``cache_pspecs`` after ``plant(cache, whole)`` edits
+    rank 1's shards, or with ``swap`` = (module, name, function) put in
+    place for that step.  Returns rank 0's {"last", "cache", "steps", "after",
+    "launches", "bad" and "bad_cache" (the planted step's logits and
+    cache), "t_pre", "t_step"}, whole on the card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_worker_mesh, threaded_world
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import ShardingEnv, distribute
+
+    dp, tp = SHARDED_MESH
+
+    def rank(r):
+        env = ShardingEnv(make_worker_mesh(dp * tp, tp=tp))
+        env_pre = (ShardingEnv(env.mesh, {"moe_impl": moe_impl})
+                   if moe_impl else env)
+        ps = distribute(held["params"], lm.param_shardings(cfg, env))
+        specs = lm.cache_pspecs(cfg, env, REST_B, max_len, src_len=src_len)
+        out = {}
+
+        def sync():
+            torch.cuda.synchronize()
+            dist.barrier()
+            return time.perf_counter()
+
+        sync()
+        if r == 0:
+            held.clear()                 # the whole params: shards only
+            reset(wrappers)
+        with torch.no_grad():
+            t0 = sync()
+            last, c = lm.prefill(ps, batch, cfg, env_pre, max_len=max_len)
+            out["t_pre"] = sync() - t0
+            out["last"] = last.full_tensor()
+            out["cache"] = {k: v.full_tensor() for k, v in c.items()}
+            lgs = []
+            t0 = sync()
+            for t in range(steps):
+                lg, c = lm.decode_step(ps, one["ids"][t], c, S + t, cfg, env)
+                lgs.append(lg)
+            out["t_step"] = (sync() - t0) / steps * 1e3
+            if r == 0:
+                out["launches"] = counts(wrappers)
+                if routing:
+                    routing.restore()
+            out["steps"] = [lg.full_tensor() for lg in lgs]
+            out["after"] = {k: v.full_tensor() for k, v in c.items()}
+            del c, lgs
+            bad = distribute(_clone(one["first"]), specs)
+            if plant:
+                plant(bad, one["first"])
+            if swap and r == 0:
+                kept = getattr(swap[0], swap[1])
+                setattr(swap[0], swap[1], swap[2])
+            sync()
+            lg, bad = lm.decode_step(ps, one["ids"][0], bad, S, cfg, env)
+            out["bad"] = lg.full_tensor()
+            out["bad_cache"] = {k: v.full_tensor() for k, v in bad.items()}
+            sync()
+            if swap and r == 0:
+                setattr(swap[0], swap[1], kept)
+        return out
+
+    with threaded_world(dp * tp, timeout=600) as run:
+        return run(rank)[0]
+
+
+def held_rest(name, cfg, one, got, S, steps, fails, must_move=True):
+    """The sharded run against the one-device one: the prefill's last
+    logits and each step's within TOL_SHARDED (picks parted only at a
+    near-tie, ``held_sharded``), the first layer of each cache entry
+    after the prefill and after the steps within TOL_STATE.  The planted
+    step's logits at or past TOL_SHARDED (with ``must_move``), else those
+    or its cache's first layer past TOL_STATE against the one-device
+    step's, as paths A and B hold their faults."""
+    hold = holder(cfg, fails)
+    hold(f"{name} prefill's last logits", rel_err(got["last"], one["last"]),
+         TOL_SHARDED)
+    held_sharded(f"{name} decode", one["steps"], got["steps"], fails)
+    for when, a, b, n in (("prefill", got["cache"], one["first"], S),
+                          ("after the steps", got["after"], one["after"],
+                           S + steps)):
+        errs = state_errs(a, b, n)
+        log(f"  {name} states {when}: " + ", ".join(
+            f"{k} first layer {e[0]:.3e}, largest {max(e):.3e}"
+            for k, e in errs.items()))
+        hold(f"{name} first layer's states {when}", first_layer(
+            {k: e for k, e in errs.items() if k not in DEEP_STATES}),
+            TOL_STATE[path_of(cfg)])
+        deep = {k: e for k, e in errs.items() if k in DEEP_STATES}
+        if deep:
+            hold(f"{name} first layer's cross caches {when}",
+                 first_layer(deep), TOL_SHARDED)
+    err = rel_err(got["bad"], one["steps"][0])
+    st = first_layer({k: e for k, e in state_errs(
+        got["bad_cache"], one["step0"], S + 1).items()
+        if k not in DEEP_STATES})
+    tol = TOL_STATE[path_of(cfg)]
+    log(f"  {name} planted fault: step 0 logits {err:.3e} (limit "
+        f"{TOL_SHARDED:g}), first layer's states {st:.3e} (limit {tol:g}); "
+        + ("the logits must" if must_move else "one of the two must")
+        + " break its limit")
+    if err < TOL_SHARDED and (must_move or st < tol):
+        fails.append(f"{name}: planted fault not caught ({err:.3e}, "
+                     f"{st:.3e})")
+
+
+def rest_walls(name, one, got, card):
+    log(f"  {name} walls: sharded prefill {got['t_pre']:.3f} s, decode step "
+        f"{got['t_step']:.2f} ms (4 thread-ranks sharing one card); "
+        f"one-device prefill {one['t_pre']:.3f} s, step "
+        f"{one['t_step']:.2f} ms [{card}]")
+
+
+def rest_launches(name, got, expect, wrappers, fails):
+    n = got["launches"]
+    expect = {**dict.fromkeys(wrappers, 0), **expect}
+    log(f"  {name} launches {n} (expected {expect})")
+    if n != expect:
+        fails.append(f"{name} launches {n} != {expect}")
+    return n
+
+
+def rest_rwkv(torch, card, wrappers, fails):
+    """rwkv6-7b at full width, depth 8: 32 of its 64 heads a rank.
+    Planted: rank 1 starts its decode from the other model shard's wkv
+    heads."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=REST_DEPTH)
+    params = ready(torch, lm, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (REST_B, REST_S),
+                                     generator=gen, device="cuda")}
+    one = rest_one_device(torch, lm, cfg, params, batch, REST_S, REST_S,
+                          REST_STEPS)
+    held = {"params": params}
+    del params
+    got = rest_sharded(torch, cfg, held, batch, REST_S, REST_S, one,
+                       wrappers, steps=REST_STEPS,
+                       plant=lambda c, w: other_shard(c["wkv"], w["wkv"], 2))
+    ranks, L_ = 4, cfg.n_layers
+    n = rest_launches("sharded rwkv6-7b", got,
+                      {"wkv6": ranks * L_ * (1 + REST_STEPS)}, wrappers,
+                      fails)
+    held_rest("sharded rwkv6-7b", cfg, one, got, REST_S, REST_STEPS, fails)
+    rest_walls("sharded rwkv6-7b", one, got, card)
+    return n
+
+
+def rest_jamba(torch, card, wrappers, fails):
+    """jamba-v0.1-52b at full width, depth 8 (one superblock): its 8192
+    mamba channels 4096 a rank; the prefill under ``moe_impl="dense"``,
+    the decode through ``moe_ep``'s EP branch (8 of 16 experts a rank),
+    both held to the one-device run's MoE picks.  Planted: rank 1 starts
+    its decode from the other model shard's conv and ssm channels."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.routing_replay import SameRouting
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=REST_DEPTH)
+    params = ready(torch, lm, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (REST_B, REST_S),
+                                     generator=gen, device="cuda")}
+    max_len = REST_S + REST_STEPS
+    routing = SameRouting()
+    one = rest_one_device(torch, lm, cfg, params, batch, REST_S, max_len,
+                          REST_STEPS, routing)
+    dp, tp = SHARDED_MESH
+
+    def rows(n_rows, m):           # a rank routes its data shard's tokens
+        return 0 if n_rows == m else (dist.get_rank() // tp) * m
+
+    routing.replay(rows=rows)
+    held = {"params": params}
+    del params
+    try:
+        got = rest_sharded(
+            torch, cfg, held, batch, REST_S, max_len, one, wrappers,
+            steps=REST_STEPS, moe_impl="dense", routing=routing,
+            plant=lambda c, w: (other_shard(c["conv"], w["conv"], 4),
+                                other_shard(c["ssm"], w["ssm"], 3)))
+    finally:
+        routing.restore()
+    ranks, nm = 4, cfg.attn_period - 1
+    n = rest_launches(
+        "sharded jamba", got,
+        {"mamba_scan": ranks * nm * (1 + REST_STEPS),
+         "flash_prefill": ranks, "paged_append": ranks * REST_STEPS,
+         "paged_decode": ranks * REST_STEPS}, wrappers, fails)
+    log(f"  sharded jamba: router picks parted at near-ties: "
+        f"{routing.flips}")
+    held_rest("sharded jamba", cfg, one, got, REST_S, REST_STEPS, fails,
+              must_move=False)
+    rest_walls("sharded jamba", one, got, card)
+    return n
+
+
+def rest_seamless(torch, card, wrappers, fails):
+    """seamless-m4t-large-v2 at full width and depth (24 + 24): 1024
+    seeded frames (x 0.02), B=2, a 256-token target prompt, 8 steps; the
+    vocabulary (256,206) over 'model' at tp 2.  Planted: in the step,
+    rank 1 reads the kv heads of the other model shard's q heads (self and
+    cross), as phase 13's fault."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    cfg = get_config("seamless-m4t-large-v2")
+    params = ready(torch, lm, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    batch = {"frames": torch.randn(REST_B, REST_FRAMES, cfg.d_model,
+                                   generator=gen, device="cuda") * 0.02,
+             "tgt_tokens": torch.randint(1, cfg.vocab, (REST_B, REST_TGT),
+                                         generator=gen, device="cuda")}
+    max_len = REST_TGT + REST_ENCDEC_STEPS
+    one = rest_one_device(torch, lm, cfg, params, batch, REST_TGT, max_len,
+                          REST_ENCDEC_STEPS)
+
+    kv_for_heads = L._kv_for_heads
+
+    def wrong_heads(k, v, h0, Hl, H):
+        import torch.distributed as dist
+        if dist.get_rank() == 1:
+            h0 = (h0 + Hl) % H
+        return kv_for_heads(k, v, h0, Hl, H)
+
+    held = {"params": params}
+    del params
+    got = rest_sharded(torch, cfg, held, batch, REST_TGT, max_len, one,
+                       wrappers, steps=REST_ENCDEC_STEPS, src_len=REST_FRAMES,
+                       swap=(L, "_kv_for_heads", wrong_heads))
+    ranks, L_ = 4, cfg.n_dec_layers
+    n = rest_launches(
+        "sharded seamless", got,
+        {"flash_prefill": ranks * (cfg.n_enc_layers + 2 * L_),
+         "paged_append": ranks * L_ * REST_ENCDEC_STEPS,
+         "paged_decode": 2 * ranks * L_ * REST_ENCDEC_STEPS}, wrappers, fails)
+    held_rest("sharded seamless", cfg, one, got, REST_TGT, REST_ENCDEC_STEPS,
+              fails)
+    rest_walls("sharded seamless", one, got, card)
+    return n
+
+
+ENGINE_KW = dict(n_slots=4, max_len=2048, pool_blocks=256, block_size=16)
+
+
+def engine_state(eng):
+    """The engine's host state: tables, lens, free list, resident set,
+    slots, counters, copy bytes."""
+    p = eng.pool
+    return (dict(p.tables), dict(p.lens), list(p.free), sorted(p.resident),
+            [(s.session_id, s.length) for s in eng.slots],
+            eng.prefill_tokens, eng.regen_tokens, eng.decode_steps,
+            eng.park_copy_bytes, eng.resume_copy_bytes)
+
+
+def engine_script(np, eng, vocab, short=False):
+    """Two SWE-bench-shaped sessions (prompts of 1136 and 752 tokens)
+    admitted and decoded together (8 rounds); a parks for a tool call,
+    a short third session takes its slot (4 rounds with b); a resumes with
+    its tool output (208 tokens, a delta prefill) into another slot, the
+    first of the other data rank on a (2, 2) mesh (8 rounds of three); b
+    releases and a parks.  ``short``: the admits and 2 rounds alone.
+    Returns (ids, host states)."""
+    rng = np.random.RandomState(18)
+    a, b, c, tool = (rng.randint(1, vocab, size=n).astype(np.int32)
+                     for n in (1136, 752, 304, 208))
+    ids, states = [], []
+    sa = eng.start_session("a", a, cached_hit=False)
+    sb = eng.start_session("b", b, cached_hit=False)
+    out = eng.decode({sa: int(a[-1]), sb: int(b[-1])},
+                     n_steps=2 if short else 8)
+    ids += [out[sa], out[sb]]
+    states.append(engine_state(eng))
+    if short:
+        return ids, states
+    assert eng.park_session("a")
+    sc = eng.start_session("c", c, cached_hit=False)
+    out = eng.decode({sb: ids[1][-1], sc: int(c[-1])}, n_steps=4)
+    ids += [out[sb], out[sc]]
+    ctx = np.concatenate([a, np.asarray(ids[0], np.int32), tool])
+    sa2 = eng.start_session("a", ctx, cached_hit=True)
+    assert sa2 == 2, sa2
+    states.append(engine_state(eng))
+    out = eng.decode({sa2: int(ctx[-1]), sb: ids[2][-1], sc: ids[3][-1]},
+                     n_steps=8)
+    ids += [out[sa2], out[sb], out[sc]]
+    assert eng.release_session("b") and eng.park_session("a")
+    states.append(engine_state(eng))
+    return ids, states
+
+
+class EngineHold:
+    """Holds the sharded engines' decode steps to the one-device engine's:
+    ``record`` keeps each one-device step's logits; under ``hold`` each
+    rank thread compares its step's gathered logits with them in order:
+    within TOL_SHARDED of the largest logit, and a row whose greedy pick
+    differs must be a near-tie (the one-device top-2 gap below the row's
+    difference), its logits then the one-device ones, so the scripts stay
+    in step."""
+
+    def __init__(self, torch):
+        import threading
+        self.torch, self.logits, self.worst, self.flips = torch, [], 0.0, 0
+        self.far, self.lock, self.mine = [], threading.Lock(), \
+            threading.local()
+
+    def record(self, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            self.logits.append(out[0][:, 0].float().clone())
+            return out
+        return call
+
+    def hold(self, fn):
+        torch = self.torch
+
+        def call(*args, **kw):
+            from torch.distributed.tensor import DTensor, Replicate
+            out = fn(*args, **kw)
+            if not hasattr(self.mine, "queue"):
+                self.mine.queue = list(self.logits)
+            ref = self.mine.queue.pop(0)
+            whole = out[0].full_tensor()
+            got = whole[:, 0].float()
+            diff = (got - ref).abs().amax(-1)
+            top2 = ref.topk(2, -1).values
+            part = got.argmax(-1) != ref.argmax(-1)
+            with self.lock:
+                self.worst = max(self.worst, rel_err(got, ref))
+                self.flips += int(part.sum())
+                if bool((part & (top2[:, 0] - top2[:, 1] >= diff)).any()):
+                    self.far.append("a greedy pick differs away from a "
+                                    "near-tie")
+            if not bool(part.any()):
+                return out
+            whole = whole.clone()
+            whole[part, 0] = ref[part].to(whole.dtype)
+            mesh = out[0].device_mesh
+            return (DTensor.from_local(whole, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False), *out[1:])
+        return call
+
+
+def rest_engine(torch, np, card, wrappers, fails):
+    """llama3.2-3b at full width, depth 8, in ``Engine(env=mesh)`` (4
+    slots over 'data', the pool's 8 kv heads 4 a rank, max_len 2048 in
+    blocks of 16) against the one-device engine on ``engine_script``:
+    ids equal (parted only at a near-tie, ``EngineHold``), host state
+    exact, every rank's pool replica byte-equal to its data peer's.
+    Planted: one data rank appends its own rows only (the gather of the
+    new K/V over 'data' skipped), which must leave its replica unlike its
+    peer's."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_worker_mesh, threaded_world
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import ShardingEnv, distribute
+    from repro_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=REST_DEPTH)
+    params = ready(torch, lm, cfg)
+    hold = EngineHold(torch)
+    step = lm.decode_step_paged
+    lm.decode_step_paged = hold.record(step)
+    try:
+        with torch.no_grad():
+            Engine(cfg, params, **ENGINE_KW).start_session(
+                "warm", np.arange(1, 65, dtype=np.int32), False)
+            hold.logits.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = Engine(cfg, params, **ENGINE_KW)
+            ids_1, states_1 = engine_script(np, eng, cfg.vocab)
+            torch.cuda.synchronize()
+            t_one = time.perf_counter() - t0
+            del eng
+    finally:
+        lm.decode_step_paged = step
+    dp, tp = SHARDED_MESH
+    held = {"params": params}
+    del params
+    append = L.append_rows
+
+    def skip_gather(kp, vp, k, v, block_ids, offsets, env, rows, heads):
+        append(kp.clone() if env.mesh.get_local_rank("data") == 1 else kp,
+               vp.clone() if env.mesh.get_local_rank("data") == 1 else vp,
+               k, v, block_ids, offsets, env, rows, heads)
+        if env.mesh.get_local_rank("data") == 1:     # its own rows alone
+            k0, nk = heads
+            L.paged_kv_update(kp, vp, k[:, :, k0:k0 + nk],
+                              v[:, :, k0:k0 + nk],
+                              L.shard_of(block_ids, env, [rows]),
+                              L.shard_of(offsets, env, [rows]))
+
+    def replicas(eng):
+        return [t.to_local().clone() for t in (eng.pool.k_pool,
+                                               eng.pool.v_pool)]
+
+    def rank(r):
+        env = ShardingEnv(make_worker_mesh(dp * tp, tp=tp))
+        ps = distribute(held["params"], lm.param_shardings(cfg, env))
+        out = {}
+
+        def sync():
+            torch.cuda.synchronize()
+            dist.barrier()
+            return time.perf_counter()
+
+        sync()
+        if r == 0:
+            held.clear()
+            reset(wrappers)
+            lm.decode_step_paged = hold.hold(step)
+        with torch.no_grad():
+            t0 = sync()
+            eng = Engine(cfg, ps, env=env, **ENGINE_KW)
+            out["ids"], out["states"] = engine_script(np, eng, cfg.vocab)
+            out["t"] = sync() - t0
+            if r == 0:
+                out["launches"] = counts(wrappers)
+                lm.decode_step_paged = step
+                L.append_rows = skip_gather
+            out["pool"], out["audit"] = replicas(eng), eng.pool.audit_blocks()
+            del eng
+            sync()
+            bad = Engine(cfg, ps, env=env, **ENGINE_KW)
+            engine_script(np, bad, cfg.vocab, short=True)
+            out["bad"] = replicas(bad)
+            sync()
+            if r == 0:
+                L.append_rows = append
+        return out
+
+    try:
+        with threaded_world(dp * tp, timeout=600) as run:
+            res = run(rank)
+    finally:
+        lm.decode_step_paged, L.append_rows = step, append
+    n = res[0]["launches"]
+    rounds, prefills = 8 + 4 + 8, 4
+    ranks, L_ = dp * tp, cfg.n_layers
+    expect = {**dict.fromkeys(wrappers, 0),
+              "flash_prefill": ranks * L_ * prefills,
+              "paged_append": ranks * L_ * rounds,
+              "paged_decode": ranks * L_ * rounds}
+    log(f"  sharded engine llama3.2-3b launches {n} (expected {expect})")
+    if n != expect:
+        fails.append(f"sharded engine launches {n} != {expect}")
+    log(f"  sharded engine: every step's logits within {hold.worst:.3e} of "
+        f"the one-device engine's (limit {TOL_SHARDED:g}); picks parted at "
+        f"near-ties {hold.flips} (all ranks)")
+    if hold.worst >= TOL_SHARDED or hold.far:
+        fails.append(f"sharded engine logits {hold.worst:.3e}; {hold.far}")
+    same = lambda a, b: all(torch.equal(x.view(torch.int16),  # noqa
+                                        y.view(torch.int16))
+                            for x, y in zip(a, b))
+    for r, o in enumerate(res):
+        if o["ids"] != ids_1 or o["states"] != states_1 or o["audit"]:
+            fails.append(f"sharded engine rank {r}: ids, host state or "
+                         f"audit differ from the one-device engine's")
+    ok = all(same(o["pool"], res[r % tp]["pool"]) for r, o in enumerate(res))
+    bad_ok = all(same(o["bad"], res[r % tp]["bad"])
+                 for r, o in enumerate(res))
+    log(f"  sharded engine: ids and host state equal to the one-device "
+        f"engine's on every rank: {not any('engine rank' in f for f in fails)}"
+        f"; pool replicas byte-equal: {ok}; planted skipped gather leaves "
+        f"them equal: {bad_ok} (must be False)")
+    if not ok or bad_ok:
+        fails.append(f"sharded engine replicas equal {ok}, under the "
+                     f"planted fault {bad_ok}")
+    log(f"  sharded engine walls: the script {res[0]['t']:.2f} s (4 thread-"
+        f"ranks sharing one card; 20 rounds, 4 prefills); one device "
+        f"{t_one:.2f} s [{card}]")
+    return n
+
+
+def rest_main(card: str) -> int:
+    """Phase 14 in the child: rwkv6-7b (depth 8), jamba (depth 8),
+    seamless-m4t (full depth) and llama3.2-3b's engine (depth 8) served
+    on a (2, 2) mesh of thread-ranks against their one-device runs.
+    Prints the launch counts by path on a line of their own; exit 0 only
+    when every check held."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --sharded-rest: torch.cuda.is_available() is false")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.configs import load_all
+    load_all()
+    wrappers, fails, by_path = all_wrappers(), [], {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for key, label, fn in (
+            ("sharded rwkv6-7b", f"rwkv6-7b (depth {REST_DEPTH})", rest_rwkv),
+            ("sharded jamba", f"jamba-v0.1-52b (depth {REST_DEPTH})",
+             rest_jamba),
+            ("sharded seamless", "seamless-m4t-large-v2 (24 + 24 layers)",
+             rest_seamless)):
+        log(f"phase 14: {label} on a (2, 2) mesh of thread-ranks")
+        with torch.no_grad():
+            by_path[key] = fn(torch, card, wrappers, fails)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 14: Engine(env=mesh), llama3.2-3b (depth {REST_DEPTH})")
+    by_path["sharded engine llama3.2-3b"] = rest_engine(torch, np, card,
+                                                        wrappers, fails)
+    log(f"  phase 14 max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB [{card}]; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(REST_COUNTS + json.dumps(by_path), flush=True)
+    for f in fails:
+        log(f"  FAILED: {f}")
+    return 1 if fails else 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3262,6 +3984,12 @@ def main() -> int:
         "heads a rank)")
     flash_long_shapes(torch, gen_more, kernels[0], FLASH_RANK)
     paged_g1_shapes(torch, gen_more, kernels[1:3], PAGED_RANK)
+    log("  phase 14's rank-local shapes (the same mesh: half of rwkv6-7b's "
+        "heads, of jamba's channels, of seamless's heads; the engine's "
+        "round)")
+    scan_rank_shapes(torch, gen_more, kernels[3], kernels[4])
+    flash_width_shapes(torch, gen_more, kernels[0], FLASH_REST)
+    paged_g1_shapes(torch, gen_more, kernels[1:3], PAGED_REST)
     log("phase 3: reference check on small inputs")
     reference_phase(torch, np)
     ssm_reference_phase(torch, np)
@@ -3283,6 +4011,9 @@ def main() -> int:
     log("phase 13: sharded serving (4 thread-ranks on the card; a child "
         "process)")
     by_path.update(sharded_phase(card))
+    log("phase 14: sharded serving II (rwkv6-7b, jamba, seamless-m4t and the "
+        "engine on 4 thread-ranks; a child process)")
+    by_path.update(rest_phase(card))
     for rec in kernels:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in
                                    by_path.items() if n[rec["name"]]}
@@ -3299,4 +4030,6 @@ if __name__ == "__main__":
         sys.exit(layouts_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sharded"]:
         sys.exit(sharded_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-rest"]:
+        sys.exit(rest_main(sys.argv[2]))
     sys.exit(main())

@@ -10,7 +10,7 @@ A step is ``lm.forward_train``, its backward and ``adamw_update``, all in
 place; no kernel is launched (none has a backward).  Every ``ckpt_every``
 steps the params, the moments and the data cursor are saved in the
 reference's format; ``--resume`` restarts at the batch after the last
-checkpoint.  A mesh (sharded training) is ROADMAP Queue 1 item 3b; it
+checkpoint.  A mesh (sharded training) is ROADMAP Queue 1 item 3c; it
 raises here.
 """
 from __future__ import annotations
@@ -55,7 +55,7 @@ def train_loop(arch: str = "small-100m", *, steps: int = 50, batch: int = 8,
         raise NotImplementedError(
             "train_loop(mesh=...): sharded training (forward_train with an "
             "env, backward through DTensor, sharded AdamW) is ROADMAP Queue "
-            "1 item 3b; the port trains on one device")
+            "1 item 3c; the port trains on one device")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_loop: CUDA is not available; pass "
                            "device='cpu' to run on the CPU")

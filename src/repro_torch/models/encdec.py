@@ -21,6 +21,18 @@ reference, the decoder's residual adds are not pinned, the cross
 queries are roped at the target positions and the cross keys are not.
 Each layer loop is a Python loop over the stacked axis; the caches are
 updated in place, where the reference returns new ones.
+
+On a mesh (an ``env`` whose ``ShardingEnv`` carries one) ``prefill``,
+``decode_step`` and ``forward_logits`` take and return DTensors, as
+``lm``'s do: the encoder is the uniform stack's non-causal attention and
+FFN with the stream at the reference's ``_res_cs`` points; each decoder
+layer's cross K/V are projected from the rank's rows of the encoder
+output (gathered once, whole sequence), and the cross-attention runs on
+the rank's q rows and heads over them (``layers.gqa_attention_full``
+with ``kv_override``); the prefill's caches come back laid out by
+``lm.cache_pspecs`` (every sequence, the cross caches' too, over
+'model'), and a decode step gathers the cross cache's shards for its q
+rows (``layers.cross_attention_decode``).
 """
 from __future__ import annotations
 
@@ -68,16 +80,38 @@ def _encoder_block(x, lp, cfg, positions, opts=None):
     return x + L.ffn_swiglu(h, lp["mlp"])
 
 
-def _run_encoder(params, frames, cfg, opts=None):
+def _run_encoder(params, frames, cfg, opts=None, env=None):
     """The encoder over the frames, non-causal; its output normed.
     ``opts``: ``lm.train_opts`` for the training route, None for
     inference."""
+    if L.on_mesh(env):
+        return _run_encoder_sharded(params, frames, cfg, env)
     x = frames.to(BF16)
     positions = _positions(x.shape[1], x.device)
     block = lm._maybe_remat(_encoder_block, opts)
     for lp in lm._layers(params["enc_layers"]):
         x = block(x, lp, cfg, positions, opts)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _run_encoder_sharded(params, frames, cfg, env):
+    """``_run_encoder`` on a mesh: the frames (a tensor every rank holds
+    whole, or a DTensor) laid out as the stream; the output normed, laid
+    out as the stream."""
+    sp, bt = env.opts.get("sp", True), env.batch_axes
+    fl = (L._local(frames, env, bt, None, None) if lm._is_dtensor(frames)
+          else L.shard_of(frames, env, [bt, None, None]))
+    x = lm._res_cs(L._global(fl.to(BF16), env, frames.shape,
+                             [bt, None, None]), env, sp)
+    positions = _positions(x.shape[1], fl.device)
+    for lp in lm._layers(params["enc_layers"]):
+        h = lm._norm(x, lp["ln1"], cfg)
+        y, _, _ = L.gqa_attention_full(h, lp["attn"], cfg, positions,
+                                       causal=False, env=env)
+        x = lm._add(x, y, env, sp)
+        h = lm._norm(x, lp["ln2"], cfg)
+        x = lm._add(x, L.ffn_swiglu(h, lp["mlp"], env), env, sp)
+    return lm._norm(x, params["enc_norm"], cfg)
 
 
 def _cross_kv(lp_cross, enc_out):
@@ -100,6 +134,49 @@ def _decoder_block(x, lp, cfg, positions, enc_out, opts=None):
     x = x + y
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + L.ffn_swiglu(h, lp["mlp"]), (sk, sv, ck, cv)
+
+
+def _decoder_block_sharded(x, lp, cfg, positions, enc_rows, env, sp):
+    """``_decoder_block`` on a mesh; ``enc_rows`` is the rank's rows of
+    the encoder output, whole sequence.  The cache entries are DTensors
+    (self k, v with their rows over the batch axes; cross k, v as well)."""
+    bt = env.batch_axes
+    h = lm._norm(x, lp["ln1"], cfg)
+    y, sk, sv = L.gqa_attention_full(h, lp["attn"], cfg, positions, env=env)
+    x = lm._add(x, y, env, sp)
+    h = lm._norm(x, lp["ln_cross"], cfg)
+    ck, cv = _cross_kv(L._whole(lp["cross"], env, ("wk", "wv")), enc_rows)
+    shape = (x.shape[0], enc_rows.shape[1], *ck.shape[2:])
+    ck, cv = (L._global(t, env, shape, [bt, None, None, None])
+              for t in (ck, cv))
+    y, _, _ = L.gqa_attention_full(h, lp["cross"], cfg, positions,
+                                   causal=False, kv_override=(ck, cv),
+                                   env=env)
+    x = lm._add(x, y, env, sp)
+    h = lm._norm(x, lp["ln2"], cfg)
+    return (lm._add(x, L.ffn_swiglu(h, lp["mlp"], env), env, sp),
+            (sk, sv, ck, cv))
+
+
+def _run_decoder_sharded(params, batch, cfg, env, max_len=None):
+    """``_run_decoder`` on a mesh; the per-layer caches padded (self) and
+    laid out with their sequence over 'model'."""
+    sp, bt = env.opts.get("sp", True), env.batch_axes
+    enc_rows = L._local(_run_encoder_sharded(params, batch["frames"], cfg,
+                                             env), env, bt, None, None)
+    x = lm._res_cs(lm.embed_tokens(params, batch["tgt_tokens"], cfg, env),
+                   env, sp)
+    positions = _positions(x.shape[1], enc_rows.device)
+    max_len = max_len or x.shape[1]
+    seq = [bt, "model", None, None]
+    kvs = []
+    for lp in lm._layers(params["dec_layers"]):
+        x, (sk, sv, ck, cv) = _decoder_block_sharded(x, lp, cfg, positions,
+                                                     enc_rows, env, sp)
+        kvs.append((lm._pad_seq_local(sk, max_len, env, seq),
+                    lm._pad_seq_local(sv, max_len, env, seq),
+                    env.cs(ck, *seq), env.cs(cv, *seq)))
+    return x, kvs
 
 
 def _run_decoder(params, batch, cfg, opts=None):
@@ -128,8 +205,12 @@ def forward_train(params, batch, cfg, *, opts=None):
                            opts["loss_chunk"])
 
 
-def forward_logits(params, batch, cfg):
-    """Logits (B, St, V) f32 over the target tokens."""
+def forward_logits(params, batch, cfg, env=None):
+    """Logits (B, St, V) f32 over the target tokens (on a mesh a DTensor
+    laid out as ``lm.logits_wants``)."""
+    if L.on_mesh(env):
+        x, _ = _run_decoder_sharded(params, batch, cfg, env)
+        return lm._final(params, x, cfg, env)
     x, _ = _run_decoder(params, batch, cfg)
     return lm._final(params, x, cfg)
 
@@ -147,10 +228,20 @@ def init_cache(cfg, batch, max_len, dtype=BF16, device="cuda",
             "cross_k": zeros(src_len), "cross_v": zeros(src_len)}
 
 
-def prefill(params, batch, cfg, max_len: Optional[int] = None):
+def prefill(params, batch, cfg, env=None, max_len: Optional[int] = None):
     """Encode the frames and prefill the decoder over the target prefix.
     Returns (last_logits (B,1,V) f32, cache {k, v: (Ld, B, max_len, K,
-    dh), cross_k, cross_v: (Ld, B, Ss, K, dh)})."""
+    dh), cross_k, cross_v: (Ld, B, Ss, K, dh)}); on a mesh DTensors, the
+    cache laid out by ``lm.cache_pspecs``."""
+    if L.on_mesh(env):
+        x, kvs = _run_decoder_sharded(params, batch, cfg, env, max_len)
+        B, St = x.shape[:2]
+        cache = dict(zip(("k", "v", "cross_k", "cross_v"),
+                         (lm._stack(z) for z in zip(*kvs))))
+        specs = lm.cache_pspecs(cfg, env, B, max_len or St,
+                                src_len=cache["cross_k"].shape[2])
+        return (lm._final(params, lm._last(x, env), cfg, env),
+                lm.laid_out(cache, specs, env))
     x, kvs = _run_decoder(params, batch, cfg)
     max_len = max_len or x.shape[1]
     sk, sv, ck, cv = (torch.stack(z) for z in zip(*kvs))
@@ -159,9 +250,11 @@ def prefill(params, batch, cfg, max_len: Optional[int] = None):
     return lm._final(params, x[:, -1:, :], cfg), cache
 
 
-def decode_step(params, tokens, cache, pos, cfg):
+def decode_step(params, tokens, cache, pos, cfg, env=None):
     """One decode step: tokens (B, 1) ids at ``pos`` (an int or (B,)); the
     self cache written in place.  Returns (logits (B,1,V) f32, cache)."""
+    if L.on_mesh(env):
+        return _decode_step_sharded(params, tokens, cache, pos, cfg, env)
     x = params["embed"][tokens]
     pos = lm.decode_positions(pos, x, cache)
     for i, lp in enumerate(lm._layers(params["dec_layers"])):
@@ -176,3 +269,24 @@ def decode_step(params, tokens, cache, pos, cfg):
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.ffn_swiglu(h, lp["mlp"])
     return lm._final(params, x, cfg), cache
+
+
+def _decode_step_sharded(params, tokens, cache, pos, cfg, env):
+    """``decode_step`` on a mesh: the self cache's shards written where
+    they hold ``pos``, the cross cache's shards gathered for the q rows;
+    the stream laid out with its batch over the batch axes."""
+    x = lm.embed_tokens(params, tokens, cfg, env)
+    pos = lm.decode_positions(pos, x, cache)
+    for i, lp in enumerate(lm._layers(params["dec_layers"])):
+        h = lm._norm(x, lp["ln1"], cfg)
+        y, _, _ = L.gqa_attention_decode(
+            h, lp["attn"], cfg, lm._select(cache["k"], i),
+            lm._select(cache["v"], i), pos, env=env)
+        x = lm._add(x, y, env, False)
+        h = lm._norm(x, lp["ln_cross"], cfg)
+        x = lm._add(x, L.cross_attention_decode(
+            h, lp["cross"], cfg, lm._select(cache["cross_k"], i),
+            lm._select(cache["cross_v"], i), pos, env), env, False)
+        h = lm._norm(x, lp["ln2"], cfg)
+        x = lm._add(x, L.ffn_swiglu(h, lp["mlp"], env), env, False)
+    return lm._decode_logits(params, x, cfg, env), cache

@@ -19,8 +19,9 @@ plain PyTorch version on a CPU tensor.  The plain attention
 the kernels in ``repro_torch.kernels``.  Projections and the FFN stay
 ``torch.einsum`` / ``matmul``, as the reference leaves them to XLA.
 
-On a mesh (an ``env`` whose ``ShardingEnv`` carries one) the attention,
-FFN and MoE functions of the uniform stack take and return DTensors.  At
+On a mesh (an ``env`` whose ``ShardingEnv`` carries one) the attention
+(seamless's cross-attention and the paged decode included), FFN and MoE
+functions take and return DTensors.  At
 each of the reference's ``env.cs`` points the tensor is redistributed to
 the reference's spec, and each function body is the reference's
 ``shard_map`` body (or what GSPMD makes of its einsums) written out on
@@ -39,7 +40,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import expand_kv, flash_prefill
-from repro_torch.kernels.paged_attention.ops import paged_append, paged_decode
+from repro_torch.kernels.paged_attention.ops import (paged_append,
+                                                     paged_decode,
+                                                     paged_kv_gather)
 from repro_torch.models.sharding import (all_gather, axis_index,
                                          contiguous_strides, psum, spec_of)
 
@@ -400,11 +403,11 @@ def _attend(q, k, v, *, causal, train, attn_block, window=0):
                                    q_block=attn_block, kv_block=attn_block)
 
 
-def _refuse_on_mesh(what: str, env, train=False, other=None):
-    if on_mesh(env) and (train or other is not None):
+def _refuse_on_mesh(what: str, env, train=False):
+    if on_mesh(env) and train:
         raise NotImplementedError(
-            f"{what} on a mesh: training and cross-attention come with "
-            f"ROADMAP Queue 1 item 3b")
+            f"{what} on a mesh: training on a mesh is ROADMAP Queue 1 item "
+            f"3c")
 
 
 def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
@@ -421,16 +424,23 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
     rows and heads (``_attn_q_spec``) over the kv heads they read
     (``_kv_for_heads``); y is the out-projection, ``rs_out_proj``'s
     reduce-scatter onto the sequence under ``opts["rs_matmul"]`` (heads
-    sharded), else a sum pending over 'model'; in f32 (``_out_proj``)."""
+    sharded), else a sum pending over 'model'; in f32 (``_out_proj``).
+    ``kv_override`` is then a pair of DTensors (any layout); the rank
+    takes its q rows of them."""
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit soft-capping is not "
                                   "ported: the flash kernel has no cap")
-    _refuse_on_mesh("gqa_attention_full", env, train, kv_override)
+    _refuse_on_mesh("gqa_attention_full", env, train)
     if on_mesh(env):
         B, S, _ = x.shape
         H, dh = cfg.n_heads, cfg.head_dim
         qw = _attn_q_spec(cfg, env)
-        q, k, v = _gqa_qkv_local(x, p, cfg, positions, env)
+        if kv_override is None:
+            q, k, v = _gqa_qkv_local(x, p, cfg, positions, env)
+        else:
+            q = gqa_q(_local(x, env, qw[0], None, None),
+                      _q_params(p, env, qw[2]), cfg, positions)
+            k, v = kv_override
         h0, Hl = _heads(env, env.spec((B, S, H, dh), qw)[2], H)
         kk, vv = _kv_for_heads(_local(k, env, qw[0], None, None, None),
                                _local(v, env, qw[0], None, None, None),
@@ -451,17 +461,71 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
 
 
 def gqa_attention_decode_paged(x, p, cfg, k_pool, v_pool, tables, pos,
-                               block_ids, offsets):
+                               block_ids, offsets, env=None):
     """One-token decode over pool blocks: appends the new token's K/V into
     each row's tail block, then attends through the block tables.
     pos: (B,) int32 position of the new token.  Returns (y, k_pool,
-    v_pool), the pools updated in place."""
+    v_pool), the pools updated in place.  On a mesh the pools are one
+    layer's DTensors (``lm.decode_step_paged`` says how they are laid
+    out) and ``tables`` / ``pos`` / ``block_ids`` / ``offsets`` tensors
+    every rank holds whole (``_paged_decode_sharded``)."""
+    if on_mesh(env):
+        return _paged_decode_sharded(x, p, cfg, k_pool, v_pool, tables, pos,
+                                     block_ids, offsets, env)
     q, k, v = gqa_qkv(x, p, cfg, pos[:, None])
     k_pool, v_pool = paged_kv_update(k_pool, v_pool, k, v, block_ids,
                                      offsets)
     y = paged_decode(q[:, 0].contiguous(), k_pool, v_pool, tables, pos + 1,
                      window=cfg.sliding_window)
     return torch.einsum("bhx,hxd->bd", y, p["wo"])[:, None], k_pool, v_pool
+
+
+def append_rows(kp, vp, k, v, block_ids, offsets, env, rows, heads):
+    """Append the new K/V of every row into this rank's pool replica:
+    ``k`` / ``v`` (its rows under the batch entry ``rows``, every kv
+    head) gathered over the batch axes, then its kv heads ``heads`` of
+    each row appended (the drop sentinel skips the idle rows), so every
+    data replica writes the same blocks."""
+    B = block_ids.shape[0]
+    k0, nk = heads
+    k, v = (_local(_global(t, env, (B, *t.shape[1:]), [rows, None, None,
+                                                        None]),
+                   env, None, None, None, None) for t in (k, v))
+    paged_kv_update(kp, vp, k[:, :, k0:k0 + nk], v[:, :, k0:k0 + nk],
+                    block_ids, offsets)
+
+
+def _paged_decode_sharded(x, p, cfg, k_pool, v_pool, tables, pos, block_ids,
+                          offsets, env):
+    """``gqa_attention_decode_paged`` on a mesh: each rank computes the
+    new token's K/V for its batch rows, ``append_rows`` lands every row
+    in its replica, and it runs ``paged_decode`` on its q rows and heads
+    (``_attn_q_spec``): in place over its kv heads of the pool where the
+    pool splits them over 'model' or its q heads are all H, else over its
+    rows' gathered blocks, the kv heads chosen by ``_kv_for_heads``."""
+    B = x.shape[0]
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kp, vp = k_pool.to_local(), v_pool.to_local()
+    k0, nk = _heads(env, sharding_spec(k_pool, env)[2], K)
+    bt = env.spec(x.shape, [env.batch_axes, None, None])[0]
+    xb, pb = _decode_rows(x, pos, env, bt)
+    k, v = _gqa_kv(xb, _whole(p, env, ("wk", "wv", "knorm")), cfg,
+                   pb[:, None])
+    append_rows(kp, vp, k, v, block_ids, offsets, env, bt, (k0, nk))
+    qw = _attn_q_spec(cfg, env)
+    xq, pq = _decode_rows(x, pos, env, qw[0])
+    q = gqa_q(xq, _q_params(p, env, qw[2]), cfg, pq[:, None])
+    h0, Hl = _heads(env, env.spec((B, 1, H, dh), qw)[2], H)
+    tq = shard_of(tables, env, [qw[0], None])
+    if nk == K and Hl != H:
+        kk, vv = _kv_for_heads(*paged_kv_gather(kp, vp, tq), h0, Hl, H)
+        y = paged_decode(q[:, 0].contiguous(), kk, vv,
+                         *_contiguous_table(pq), window=cfg.sliding_window)
+    else:
+        y = paged_decode(q[:, 0].contiguous(), kp, vp, tq, pq + 1,
+                         window=cfg.sliding_window)
+    y = _global(y[:, None], env, (B, 1, H, dh), qw)
+    return _out_proj(y, p["wo"], env, qw), k_pool, v_pool
 
 
 def _contiguous_table(pos):
@@ -553,13 +617,36 @@ def gqa_attention_decode(x, p, cfg, k_cache, v_cache, pos, env=None):
     return torch.einsum("bhx,hxd->bd", y, p["wo"])[:, None], k_cache, v_cache
 
 
-def cross_attention_decode(x, p, cfg, k_cross, v_cross, pos):
+def cross_attention_decode(x, p, cfg, k_cross, v_cross, pos, env=None):
     """One-token cross-attention over a frozen cross cache (B, Ss, K, dh):
     q projected and roped at ``pos`` (B,) int32, the cross K/V unroped, as
     the reference's ``encdec.decode_step`` does; every one of the Ss
     positions visible (its ``decode_attention`` at position Ss - 1).  Read
     through ``paged_decode`` as one block of Ss a row.  The reference's
-    decode applies no qk_norm to this q (its prefill does)."""
+    decode applies no qk_norm to this q (its prefill does).
+
+    On a mesh the cross cache is a DTensor (``lm.cache_pspecs`` puts its
+    sequence over 'model'): each rank gathers its q rows' shards, as
+    ``_gqa_decode_sharded`` does for the self cache, and runs the kernel
+    on its q rows and heads over the kv heads they read; y is the
+    out-projection, a sum pending over 'model' (``_out_proj``)."""
+    if on_mesh(env):
+        B, Ss = k_cross.shape[0], k_cross.shape[1]
+        H, dh = cfg.n_heads, cfg.head_dim
+        qw = _attn_q_spec(cfg, env)
+        xq, pq = _decode_rows(x, pos, env, qw[0])
+        q = gqa_q(xq, _q_params(p, env, qw[2]), cfg, pq[:, None],
+                  qk_norm=False)
+        h0, Hl = _heads(env, env.spec((B, 1, H, dh), qw)[2], H)
+        kk, vv = _kv_for_heads(_local(k_cross, env, qw[0], None, None, None),
+                               _local(v_cross, env, qw[0], None, None, None),
+                               h0, Hl, H)
+        Bq = q.shape[0]
+        tables = torch.arange(Bq, dtype=torch.int32, device=q.device)[:, None]
+        lens = torch.full((Bq,), Ss, dtype=torch.int32, device=q.device)
+        y = paged_decode(q[:, 0], kk, vv, tables, lens)
+        return _out_proj(_global(y[:, None], env, (B, 1, H, dh), qw),
+                         p["wo"], env, qw)
     B, Ss = k_cross.shape[0], k_cross.shape[1]
     q = gqa_q(x, p, cfg, pos[:, None], qk_norm=False)
     tables = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]

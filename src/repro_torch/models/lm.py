@@ -44,16 +44,18 @@ The sharding specs are the reference's: ``param_rules`` /
 for the caches, as ``NamedSharding`` (DTensor placements) on a
 ``ShardingEnv``'s mesh.  ``prefill``, ``decode_step`` and
 ``forward_logits`` take an optional ``env`` after ``cfg``, as the
-reference's do.  Without one (or with ``ShardingEnv(None)``) they run on
-one device.  With a mesh they serve the uniform families (dense, moe,
-vlm, MLA included): params and caches are DTensors laid out by
+reference's do, and so does ``decode_step_paged``.  Without one (or
+with ``ShardingEnv(None)``) they run on one device.  With a mesh they
+serve every family: params and caches are DTensors laid out by
 ``param_shardings`` / ``cache_pspecs`` (``sharding.distribute`` places a
-whole tree), the residual stream is redistributed at the reference's
-``_res_cs`` points, the layers run their shards (``layers``), and the
-logits come back as DTensors laid out as the reference's dry run fixes
-them (batch over the batch axes, vocab over 'model').  The other
-families, ``forward_train`` and ``decode_step_paged`` refuse a mesh,
-naming the ROADMAP item that ports them.
+whole tree; the paged pool by ``serving.kvcache.pool_sharding``), the
+residual stream is redistributed at the reference's ``_res_cs`` points,
+the layers run their shards (``layers``, ``rwkv``, ``mamba``,
+``encdec``), the recurrent states come back laid out as ``cache_pspecs``
+puts them, and the logits as DTensors laid out as the reference's dry
+run fixes them (batch over the batch axes, vocab over 'model').
+``forward_train`` refuses a mesh, naming the ROADMAP item that ports
+training on one.
 """
 from __future__ import annotations
 
@@ -316,10 +318,26 @@ def _as_layers(t, parts):
             for part in parts]
 
 
+def _whole_layers(t):
+    """A stacked DTensor with its layer axis whole on every rank.  The
+    reference's rules (``_n_stack``) take seamless's ``enc_layers`` /
+    ``dec_layers`` FFN weights (L, d, f) for an expert stack and split
+    their layer axis over 'model', which its layer scan gathers; here the
+    axis is gathered over that mesh axis before the layers are split off
+    (any other leaf is returned as it is)."""
+    from torch.distributed.tensor import Replicate
+    pls = tuple(Replicate() if getattr(pl, "dim", None) == 0 else pl
+                for pl in t.placements)
+    if pls == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, pls)
+
+
 def _select(t, i: int):
     """Layer ``i`` of a stacked leaf (a view; a DTensor's as a DTensor
     over the view of its shard)."""
     if _is_dtensor(t):
+        t = _whole_layers(t)
         return _as_layers(t, [t.to_local()[i]])[0]
     return t[i]
 
@@ -352,6 +370,7 @@ def _layers(tree):
     full-size zero tensor per layer."""
     if not isinstance(tree, dict):
         if _is_dtensor(tree):
+            tree = _whole_layers(tree)
             return _as_layers(tree, tree.to_local().unbind(0))
         return tree.unbind(0)
     per = {k: _layers(v) for k, v in tree.items()}
@@ -586,6 +605,22 @@ def _sum_cs(y, x, env, sp: bool):
     return L.rowwise(lambda t: t.to(x.dtype), _res_cs(y, env, sp))
 
 
+def _add(x, y, env, sp: bool):
+    """The stream x plus a sublayer's output y on a mesh: y's pending sum
+    taken and rounded (``_sum_cs``), added, the stream at its ``_res_cs``
+    point."""
+    return _res_cs(L.dt_add(x, _sum_cs(y, x, env, sp)), env, sp)
+
+
+def _decode_block_sharded(x, lp, cfg, env, attend):
+    """One decode layer of the uniform stack on a mesh: ``attend(h)`` is
+    the attention's output (its cache updated in place); the stream is
+    laid out with its batch over the batch axes at each point."""
+    x = _add(x, attend(_norm(x, lp["ln1"], cfg)), env, False)
+    return _add(x, _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, env), env,
+                False)
+
+
 def _pad_seq_local(x, max_len, env, wants):
     """A (B, S, ...) DTensor whose sequence is whole on every rank, padded
     with zeros to ``max_len`` and laid out as spec(``wants``)."""
@@ -618,11 +653,8 @@ def _uniform_block_sharded(x, lp, cfg, positions, env, max_len):
     y, c1, c2 = attn(h, lp["attn"], cfg, positions, env=env)
     # constrain the contraction OUTPUT (the pending sum lands as a
     # reduce-scatter into the sequence-parallel layout), then the sum
-    y = _sum_cs(y, x, env, sp)
-    x = _res_cs(L.dt_add(x, y), env, sp)
-    h = _norm(x, lp["ln2"], cfg)
-    y = _sum_cs(_mlp(h, lp["mlp"], cfg, env), x, env, sp)
-    x = _res_cs(L.dt_add(x, y), env, sp)
+    x = _add(x, y, env, sp)
+    x = _add(x, _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, env), env, sp)
     bt = env.batch_axes
     return x, tuple(_pad_seq_local(c, max_len or c.shape[1], env,
                                    [bt, "model"] + [None] * (c.dim() - 2))
@@ -655,12 +687,8 @@ def _uniform_decode_block(x, lp, c1, c2, cfg, pos, env=None):
     batch axes at each of them."""
     attn = L.mla_attention_decode if cfg.use_mla else L.gqa_attention_decode
     if L.on_mesh(env):
-        h = _norm(x, lp["ln1"], cfg)
-        y, c1, c2 = attn(h, lp["attn"], cfg, c1, c2, pos, env=env)
-        x = _res_cs(L.dt_add(x, _sum_cs(y, x, env, False)), env, False)
-        h = _norm(x, lp["ln2"], cfg)
-        y = _sum_cs(_mlp(h, lp["mlp"], cfg, env), x, env, False)
-        return _res_cs(L.dt_add(x, y), env, False)
+        return _decode_block_sharded(x, lp, cfg, env, lambda h: attn(
+            h, lp["attn"], cfg, c1, c2, pos, env=env)[0])
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     y, c1, c2 = attn(h, lp["attn"], cfg, c1, c2, pos)
     x = L.pin_bf16(x + L.pin_bf16(y))
@@ -670,9 +698,15 @@ def _uniform_decode_block(x, lp, c1, c2, cfg, pos, env=None):
 
 
 def _uniform_decode_block_paged(x, lp, kp, vp, tables, pos, block_ids,
-                                offsets, cfg):
+                                offsets, cfg, env=None):
     """Twin of ``_uniform_block`` for one token over pool blocks, with
-    the same residual-stream rounding points."""
+    the same residual-stream rounding points (on a mesh, those of
+    ``_uniform_decode_block``)."""
+    if L.on_mesh(env):
+        return _decode_block_sharded(
+            x, lp, cfg, env, lambda h: L.gqa_attention_decode_paged(
+                h, lp["attn"], cfg, kp, vp, tables, pos, block_ids, offsets,
+                env)[0]), kp, vp
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     y, kp, vp = L.gqa_attention_decode_paged(h, lp["attn"], cfg, kp, vp,
                                              tables, pos, block_ids, offsets)
@@ -741,13 +775,71 @@ def _jamba_superblock(x, sb, cfg, positions, *, states=None, collect=False,
     return x, kv_out, new_states
 
 
-def _run_jamba(params, x, cfg, positions, *, collect=False, opts=None):
+def _jamba_superblock_sharded(x, sb, cfg, positions, env, *, states=None,
+                              pos=None, max_len=None):
+    """``_jamba_superblock`` on a mesh, the stream at the reference's
+    ``_res_cs`` point after every slot (its sequence over 'model' under
+    ``sp`` in a prefill, never in a decode).  A prefill returns its k, v
+    padded to ``max_len`` and laid out with their sequence over 'model';
+    the mamba slots' states come back laid out as ``cache_pspecs`` puts
+    them (channels over 'model')."""
+    per = cfg.attn_period
+    sp = env.opts.get("sp", True) and states is None
+    mi = ji = fi = 0
+    conv, ssm = [], []
+    kv_out = None
+    mamba, moe, ffn, mamba_ln, moe_ln, ffn_ln = (
+        _layers(sb[k]) for k in ("mamba", "moe", "ffn", "mamba_ln",
+                                 "moe_ln", "ffn_ln"))
+    for slot in range(per):
+        if slot == per // 2:
+            h = _norm(x, sb["attn_ln"], cfg)
+            if states is None:
+                y, k, v = L.gqa_attention_full(h, sb["attn"], cfg,
+                                               positions, env=env)
+                kv_out = tuple(_pad_seq_local(
+                    c, max_len or c.shape[1], env,
+                    [env.batch_axes, "model", None, None]) for c in (k, v))
+            else:
+                y, kc, vc = L.gqa_attention_decode(
+                    h, sb["attn"], cfg, states["k"], states["v"], pos,
+                    env=env)
+                kv_out = (kc, vc)
+        else:
+            h = _norm(x, mamba_ln[mi], cfg)
+            y, conv_s, ssm_s = M.mamba_layer(
+                h, mamba[mi], cfg, env, return_state=True,
+                conv_state=None if states is None
+                else _select(states["conv"], mi),
+                ssm_state=None if states is None
+                else _select(states["ssm"], mi))
+            conv.append(conv_s)
+            ssm.append(ssm_s)
+            mi += 1
+        x = _add(x, y, env, sp)
+        if cfg.layer_is_moe(slot):
+            h, lp = _norm(x, moe_ln[ji], cfg), moe[ji]
+            ji += 1
+        else:
+            h, lp = _norm(x, ffn_ln[fi], cfg), ffn[fi]
+            fi += 1
+        x = _add(x, _mlp(h, lp, cfg, env), env, sp)
+    return x, kv_out, {"conv": _stack(conv), "ssm": _stack(ssm)}
+
+
+def _run_jamba(params, x, cfg, positions, *, collect=False, opts=None,
+               env=None, max_len=None):
     """Returns (x, None) or, with ``collect``, (x, ((k, v), {conv, ssm}))
     stacked over superblocks."""
     block = _maybe_remat(_jamba_superblock, opts)
     ks, vs, convs, ssms = [], [], [], []
     for sb in _layers(params["superblocks"]):
-        x, kv, st = block(x, sb, cfg, positions, collect=collect, opts=opts)
+        if L.on_mesh(env):
+            x, kv, st = _jamba_superblock_sharded(x, sb, cfg, positions, env,
+                                                  max_len=max_len)
+        else:
+            x, kv, st = block(x, sb, cfg, positions, collect=collect,
+                              opts=opts)
         if collect:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -755,8 +847,8 @@ def _run_jamba(params, x, cfg, positions, *, collect=False, opts=None):
             ssms.append(st["ssm"])
     if not collect:
         return x, None
-    return x, ((torch.stack(ks), torch.stack(vs)),
-               {"conv": torch.stack(convs), "ssm": torch.stack(ssms)})
+    return x, ((_stack(ks), _stack(vs)),
+               {"conv": _stack(convs), "ssm": _stack(ssms)})
 
 
 # --- rwkv ------------------------------------------------------------------
@@ -776,17 +868,36 @@ def _rwkv_block(x, lp, cfg, *, collect=False, opts=None):
     return x, ((wkv, s_tm, s_cm) if collect else None)
 
 
-def _run_rwkv(params, x, cfg, *, collect=False, opts=None):
+def _rwkv_block_sharded(x, lp, cfg, env, sp, st=None):
+    """``_rwkv_block`` (``st`` None) or ``_rwkv_decode_block`` (``st`` the
+    layer's (wkv, shift_tm, shift_cm)) on a mesh: each mix's output added
+    to the stream (``_add``).  Returns (x, (wkv, shift_tm, shift_cm)) laid
+    out as ``cache_pspecs`` puts them."""
+    wkv, s_tm, s_cm = st or (None, None, None)
+    y, s_tm2, wkv2 = R.rwkv6_time_mix(_norm(x, lp["ln1"], cfg), lp["tm"],
+                                      cfg, env, shift_state=s_tm,
+                                      wkv_state=wkv, return_state=True)
+    x = _add(x, y, env, sp)
+    y, s_cm2 = R.rwkv6_channel_mix(_norm(x, lp["ln2"], cfg), lp["cm"], cfg,
+                                   env, shift_state=s_cm, return_state=True)
+    return _add(x, y, env, sp), (wkv2, s_tm2, s_cm2)
+
+
+def _run_rwkv(params, x, cfg, *, collect=False, opts=None, env=None):
     """Returns (x, None) or, with ``collect``, (x, (wkv, shift_tm,
     shift_cm)) stacked over layers."""
     block = _maybe_remat(_rwkv_block, opts)
     sts = []
     for lp in _layers(params["layers"]):
-        x, st = block(x, lp, cfg, collect=collect, opts=opts)
+        if L.on_mesh(env):
+            x, st = _rwkv_block_sharded(x, lp, cfg, env,
+                                        env.opts.get("sp", True))
+        else:
+            x, st = block(x, lp, cfg, collect=collect, opts=opts)
         sts.append(st)
     if not collect:
         return x, None
-    return x, tuple(torch.stack(z) for z in zip(*sts))
+    return x, tuple(_stack(z) for z in zip(*sts))
 
 
 def _rwkv_decode_block(x, lp, st, cfg):
@@ -861,25 +972,22 @@ def _last(x, env):
     return L._global(xl, env, (x.shape[0], 1, x.shape[2]), [bt, None, None])
 
 
-# what a mesh does not serve yet, by entry point or family: its ROADMAP
-# Queue 1 item
-MESH_ITEMS = {"forward_train": "3b", "decode_step_paged": "3c",
-              "ssm": "3b", "hybrid": "3b", "audio": "3b"}
+# what a mesh does not run yet, by entry point: its ROADMAP Queue 1 item
+MESH_ITEMS = {"forward_train": "3c"}
 
 
 def check_mesh(cfg: ModelConfig, env, entry: str) -> bool:
-    """True where ``env`` carries a mesh that ``entry`` serves; raises
+    """True where ``env`` carries a mesh that ``entry`` runs on; raises
     ``NotImplementedError`` naming the ROADMAP item for a mesh it does not
-    (the ssm, hybrid and audio families, training, paged decode).
-    Nothing falls back to an unsharded run."""
+    (training, every family).  Nothing falls back to an unsharded run."""
     if not L.on_mesh(env):
         return False
-    item = MESH_ITEMS.get(entry) or MESH_ITEMS.get(cfg.family)
+    item = MESH_ITEMS.get(entry)
     if item:
         raise NotImplementedError(
-            f"{entry} on a mesh for {cfg.name} ({cfg.family}): this slice "
-            f"serves the uniform families on a mesh; ROADMAP Queue 1 item "
-            f"{item} ports the rest")
+            f"{entry} on a mesh for {cfg.name} ({cfg.family}): the port "
+            f"serves every family on a mesh but trains on one device; "
+            f"training on a mesh is ROADMAP Queue 1 item {item}")
     return True
 
 
@@ -889,7 +997,7 @@ def forward_train(params, batch, cfg: ModelConfig, env=None, *,
     (B, S) over the causal forward, a scalar f32 tensor under autograd
     (enc-dec: ``frames``, ``tgt_tokens``, ``tgt_labels``).  The twin of the
     reference's ``forward_train`` (``repro/models/lm.py:595``) with no
-    mesh (a mesh raises: ROADMAP Queue 1 item 3b); ``opts`` takes
+    mesh (a mesh raises: ROADMAP Queue 1 item 3c); ``opts`` takes
     ``TRAIN_OPTS``' keys (``attn_block``, ``loss_chunk``, ``remat``).  No
     kernel is launched: the kernels have no backward."""
     check_family(cfg)
@@ -916,8 +1024,16 @@ def forward_logits(params, batch, cfg: ModelConfig, env=None):
     ``logits_wants``."""
     check_family(cfg)
     if check_mesh(cfg, env, "forward_logits"):
+        if cfg.enc_dec:
+            from repro_torch.models import encdec
+            return encdec.forward_logits(params, batch, cfg, env)
         x, positions = _assemble_sharded(params, batch, cfg, env)
-        x, _ = _run_uniform(params, x, cfg, positions, env=env)
+        if cfg.family == "ssm":
+            x, _ = _run_rwkv(params, x, cfg, env=env)
+        elif cfg.family == "hybrid":
+            x, _ = _run_jamba(params, x, cfg, positions, env=env)
+        else:
+            x, _ = _run_uniform(params, x, cfg, positions, env=env)
         return _final(params, x, cfg, env)
     if cfg.enc_dec:
         from repro_torch.models import encdec
@@ -1030,11 +1146,11 @@ def prefill(params, batch, cfg: ModelConfig, env=None,
     On a mesh: the last logits laid out as ``logits_wants``, the cache
     leaves as ``cache_pspecs(cfg, env, B, max_len)`` lays them out."""
     check_family(cfg)
-    if check_mesh(cfg, env, "prefill"):
+    if check_mesh(cfg, env, "prefill") and not cfg.enc_dec:
         return _prefill_sharded(params, batch, cfg, env, max_len)
     if cfg.enc_dec:
         from repro_torch.models import encdec
-        return encdec.prefill(params, batch, cfg, max_len=max_len)
+        return encdec.prefill(params, batch, cfg, env, max_len=max_len)
     x, _, positions = _assemble_inputs(params, batch, cfg)
     max_len = max_len or x.shape[1]
     if cfg.family == "ssm":
@@ -1056,13 +1172,38 @@ def _prefill_sharded(params, batch, cfg, env, max_len):
     x, positions = _assemble_sharded(params, batch, cfg, env)
     B, S = x.shape[:2]
     max_len = max_len or S
-    x, (c1, c2) = _run_uniform(params, x, cfg, positions, env=env,
-                               max_len=max_len)
-    names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
-    specs = cache_pspecs(cfg, env, B, max_len)
-    cache = {n: c.redistribute(env.mesh, specs[n].placements)
-             for n, c in zip(names, (c1, c2))}
-    return _final(params, _last(x, env), cfg, env), cache
+    if cfg.family == "ssm":
+        x, st = _run_rwkv(params, x, cfg, collect=True, env=env)
+        cache = dict(zip(_RWKV_STATE, st))
+    elif cfg.family == "hybrid":
+        x, ((k, v), st) = _run_jamba(params, x, cfg, positions, collect=True,
+                                     env=env, max_len=max_len)
+        cache = {"k": k, "v": v, **st}
+    else:
+        x, (c1, c2) = _run_uniform(params, x, cfg, positions, env=env,
+                                   max_len=max_len)
+        names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+        cache = dict(zip(names, (c1, c2)))
+    return (_final(params, _last(x, env), cfg, env),
+            laid_out(cache, cache_pspecs(cfg, env, B, max_len), env))
+
+
+_RWKV_STATE = ("wkv", "shift_tm", "shift_cm")
+
+
+def laid_out(tree, shardings, env):
+    """Each DTensor of ``tree`` laid out by its ``NamedSharding`` in
+    ``shardings`` (``env.cs``)."""
+    return {k: env.cs(v, *shardings[k].spec) for k, v in tree.items()}
+
+
+def _copy_local(dst, src):
+    """Write the DTensor ``src`` into ``dst`` (a view into a cache), shard
+    by shard: the two must be laid out alike."""
+    if tuple(dst.placements) != tuple(src.placements):
+        raise ValueError(f"a state laid out as {src.placements} written "
+                         f"into a cache laid out as {dst.placements}")
+    dst.to_local().copy_(src.to_local())
 
 
 def _pad_seq(x, max_len, axis):
@@ -1093,16 +1234,34 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig, env=None):
     ``serve_fullshard``)."""
     check_family(cfg)
     if check_mesh(cfg, env, "decode_step"):
+        if cfg.enc_dec:
+            from repro_torch.models import encdec
+            return encdec.decode_step(params, tokens, cache, pos, cfg, env)
         x = embed_tokens(params, tokens, cfg, env)
         pos = decode_positions(pos, x, cache)
-        c1, c2 = ("ckv", "krope") if cfg.use_mla else ("k", "v")
-        for i in range(cfg.n_layers):
-            x = _uniform_decode_block(
-                x, _layer(params["layers"], i), _select(cache[c1], i),
-                _select(cache[c2], i), cfg, pos, env)
-        bt = None if env.opts.get("serve_fullshard") else env.batch_axes
-        logits = _final(params, x, cfg, env)
-        return env.cs(logits, *logits_wants(env, bt)), cache
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                st = tuple(_select(cache[k], i) for k in _RWKV_STATE)
+                x, new = _rwkv_block_sharded(x, _layer(params["layers"], i),
+                                             cfg, env, False, st)
+                for old, n in zip(st, new):
+                    _copy_local(old, n)
+        elif cfg.family == "hybrid":
+            for s in range(cfg.n_layers // cfg.attn_period):
+                states = {k: _select(cache[k], s)
+                          for k in ("k", "v", "conv", "ssm")}
+                x, _, st = _jamba_superblock_sharded(
+                    x, _layer(params["superblocks"], s), cfg, None, env,
+                    states=states, pos=pos)
+                for k in ("conv", "ssm"):
+                    _copy_local(states[k], st[k])
+        else:
+            c1, c2 = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+            for i in range(cfg.n_layers):
+                x = _uniform_decode_block(
+                    x, _layer(params["layers"], i), _select(cache[c1], i),
+                    _select(cache[c2], i), cfg, pos, env)
+        return _decode_logits(params, x, cfg, env), cache
     if cfg.enc_dec:
         from repro_torch.models import encdec
         return encdec.decode_step(params, tokens, cache, pos, cfg)
@@ -1132,6 +1291,13 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig, env=None):
     return _final(params, x, cfg), cache
 
 
+def _decode_logits(params, x, cfg, env):
+    """A decode step's logits on a mesh, laid out as ``logits_wants``
+    (batch replicated under ``serve_fullshard``)."""
+    bt = None if env.opts.get("serve_fullshard") else env.batch_axes
+    return env.cs(_final(params, x, cfg, env), *logits_wants(env, bt))
+
+
 def decode_positions(pos, x, cache):
     """``decode_step``'s ``pos`` (an int or (B,)) as (B,) int32 on x's
     device, asserted below the self-attention cache's ``max_len`` where the
@@ -1157,13 +1323,40 @@ def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
     drop sentinel).  Covers the uniform GQA-cache families (dense, moe,
     vlm) and refuses MLA and enc-dec, as the reference's does.  The pools
     are updated in place, where the reference returns new arrays.  Returns
-    (logits (B,1,V) f32, k_pool, v_pool).  A mesh raises (ROADMAP Queue 1
-    item 3c)."""
+    (logits (B,1,V) f32, k_pool, v_pool).
+
+    On a mesh the pools are DTensors laid out as
+    ``serving.kvcache.pool_sharding`` puts them, the ids and tables tensors every rank holds whole, and the
+    logits come back laid out as ``logits_wants``.  The reference gives
+    the pool no layout (``jnp.zeros``, placed by GSPMD), so any layout
+    computes its function; the port's:
+
+    * over 'data', replicated: a session's slot, and so the data rank of
+      its row, changes across park and resume, so each rank computes the
+      new K/V of its rows (every kv head: ``wk`` / ``wv`` are replicated
+      over 'model'), the rows are gathered over 'data', and every data
+      replica appends every row and holds every block;
+    * over 'model', by kv heads where ``K % tp == 0`` (the q heads then
+      split too): a rank's ``H / tp`` q heads read exactly its ``K / tp``
+      kv heads in place, at the kernel's unchanged G;
+    * over 'model' otherwise, replicated: a rank gathers its rows' blocks
+      and reads the kv heads of its q heads by ``_kv_for_heads``' rule.
+
+    The idle rows' sentinel ``num_blocks`` stays out of range on every
+    replica (no layout splits the block axis)."""
     check_family(cfg)
     check_mesh(cfg, env, "decode_step_paged")
     if cfg.family == "ssm" or cfg.attn_period or cfg.use_mla or cfg.enc_dec:
         raise ValueError("paged decode covers the uniform GQA-cache "
                          "families")
+    if L.on_mesh(env):
+        x = embed_tokens(params, tokens, cfg, env)
+        for i in range(cfg.n_layers):
+            x, _, _ = _uniform_decode_block_paged(
+                x, _layer(params["layers"], i), _select(k_pool, i),
+                _select(v_pool, i), tables, pos, block_ids, offsets, cfg,
+                env)
+        return _decode_logits(params, x, cfg, env), k_pool, v_pool
     x = embed_tokens(params, tokens, cfg)
     for i in range(cfg.n_layers):
         x, _, _ = _uniform_decode_block_paged(

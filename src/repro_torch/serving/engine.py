@@ -16,6 +16,19 @@ block); on the CPU, their plain versions.
 PyTorch runs eagerly, so there is no jit cache; the prefill lengths are
 still padded to the reference's lcm quantum, which keeps the KV (and the
 token ids) the reference's.
+
+``Engine(env=...)`` with a mesh runs on each rank of it, as the
+reference's engine jits its functions with ``env``: the params are
+DTensors (``lm.param_shardings``), the prefill and the decode steps are
+``lm``'s sharded ones, the paged pool is laid out as
+``kvcache.pool_sharding`` puts it (every data replica holds every block;
+``lm.decode_step_paged`` says why), and the gather mode's slot caches as
+``lm.cache_pspecs``.  The prefill's cache (its sequence over 'model') is
+gathered before it lands in blocks or slots, and the greedy pick is
+taken from the gathered logits, so every rank picks the same id and
+keeps the same host state (slots, tables, free list, counters, copy
+bytes).  The MoE archs run ``env.opts["moe_impl"]``, as the reference's
+engine does.  With ``env`` None the engine runs on one device.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.models.layers import on_mesh
 from repro_torch.serving.kvcache import PagedKVPool
 
 # the reference's jit bucket: prefill lengths pad to lcm(bucket,
@@ -67,7 +81,8 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
-        self.env = env              # kept for the runtime's scale-up call
+        self.env = env
+        self.mesh = on_mesh(env)
         self.n_slots = n_slots
         self.max_len = max_len
         self.paged = paged
@@ -86,10 +101,14 @@ class Engine:
             headroom = 0
             self.cache = lm.init_cache(cfg, n_slots, max_len,
                                        device=self.device)
+            if self.mesh:
+                from repro_torch.models.sharding import distribute
+                self.cache = distribute(self.cache, lm.cache_pspecs(
+                    cfg, env, n_slots, max_len))
         self.pool = PagedKVPool(cfg.n_layers, pool_blocks, block_size,
                                 cfg.n_kv_heads, cfg.head_dim,
                                 headroom_blocks=headroom,
-                                device=self.device)
+                                device=self.device, env=env)
         # prefill quantum: a whole number of blocks AND of the base
         # bucket, so a bucket boundary never splits a tail block
         self._prefill_quantum = (_PREFILL_BUCKET * block_size
@@ -110,6 +129,13 @@ class Engine:
     def _ints(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
         return torch.from_numpy(a).to(device=self.device, dtype=dtype)
 
+    def _whole(self, t) -> torch.Tensor:
+        """A model output whole on this rank: a DTensor gathered (with no
+        mesh, ``t`` itself)."""
+        if not self.mesh:
+            return t
+        return self.env.cs(t, *[None] * t.dim()).to_local()
+
     # -- slot management -----------------------------------------------------
     def free_slot(self) -> Optional[int]:
         for i, s in enumerate(self.slots):
@@ -128,6 +154,9 @@ class Engine:
         the slot's row zeroed (the reference pads to max_len)."""
         n = k.shape[1]
         for cache, new in ((self.cache["k"], k), (self.cache["v"], v)):
+            if self.mesh:
+                _write_row(cache, slot, new)
+                continue
             cache[:, slot, :n] = new
             cache[:, slot, n:] = 0
         self.slots[slot].length = length
@@ -152,8 +181,10 @@ class Engine:
             batch["patches"] = torch.zeros(1, 0, self.cfg.d_model,
                                            dtype=torch.bfloat16,
                                            device=self.device)
-        _, cache = lm.prefill(self.params, batch, self.cfg, max_len=pad_to)
-        return cache["k"][:, 0, :n], cache["v"][:, 0, :n]
+        _, cache = lm.prefill(self.params, batch, self.cfg, self.env,
+                              max_len=pad_to)
+        return (self._whole(cache["k"])[:, 0, :n],
+                self._whole(cache["v"])[:, 0, :n])
 
     # -- public API ------------------------------------------------------------
     def start_session(self, sid: str, tokens: np.ndarray,
@@ -247,8 +278,8 @@ class Engine:
             else:
                 logits, self.cache = lm.decode_step(
                     self.params, self._ints(tok, torch.long), self.cache,
-                    self._ints(pos), self.cfg)
-            nxt = logits[:, 0, :].argmax(dim=-1).cpu().numpy()
+                    self._ints(pos), self.cfg, self.env)
+            nxt = self._whole(logits)[:, 0, :].argmax(dim=-1).cpu().numpy()
             for s in cur:
                 if self.paged:
                     self.pool.append_token(self.slots[s].session_id)
@@ -275,7 +306,7 @@ class Engine:
         logits, pool.k_pool, pool.v_pool = lm.decode_step_paged(
             self.params, self._ints(tok, torch.long), pool.k_pool,
             pool.v_pool, self._ints(tables), self._ints(pos),
-            self._ints(ablk), self._ints(aoff), self.cfg)
+            self._ints(ablk), self._ints(aoff), self.cfg, self.env)
         return logits
 
     def park_session(self, sid: str) -> bool:
@@ -293,8 +324,8 @@ class Engine:
                 return False
             self.slots[slot] = SlotState()
             return True
-        ok = self.pool.park(sid, self.cache["k"][:, slot],
-                            self.cache["v"][:, slot],
+        ok = self.pool.park(sid, self._whole(self.cache["k"])[:, slot],
+                            self._whole(self.cache["v"])[:, slot],
                             self.slots[slot].length)
         if ok:
             self.park_copy_bytes += self.pool.session_bytes(sid)
@@ -394,3 +425,20 @@ class Engine:
 
     def pool_used_fraction(self) -> float:
         return self.pool.used_blocks() / self.pool.num_blocks
+
+
+def _write_row(cache, slot: int, new) -> None:
+    """Write slot ``slot``'s row of a sharded slot cache (L, n_slots,
+    max_len, K, dh): ``new`` (L, n, K, dh), whole on every rank, then
+    zeros, each rank writing the positions of its shard where it holds the
+    slot's row."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    if not off[1] <= slot < off[1] + shape[1]:
+        return
+    row = new.new_zeros((cache.shape[0], cache.shape[2], *cache.shape[3:]))
+    row[:, :new.shape[1]] = new
+    cache.to_local()[:, slot - off[1]] = \
+        row[:, off[2]:off[2] + shape[2], off[3]:off[3] + shape[3]]

@@ -28,6 +28,14 @@ into the tail block on device.  The host-side bookkeeping is the
 reference's line for line; where the reference writes ``.at[...].set``
 into a new array, the port writes the same blocks in place with
 ``index_put_`` (tensor indexing assignment).
+
+With an ``env`` on a mesh the two tensors are DTensors laid out by
+``pool_sharding`` (``models.lm.decode_step_paged`` says why): every rank
+holds a replica of every block, with all the kv heads or, where they
+split over 'model', its ``K / tp`` of them.  Each rank runs the same host
+bookkeeping; the methods that land KV take it whole and write the rank's
+kv heads, and ``resume`` gathers them back, so ``export_kv`` hands over
+whole (L, n, K, dh) tensors on every rank.
 """
 from __future__ import annotations
 
@@ -38,10 +46,17 @@ import torch
 import torch.nn.functional as F
 
 
+def pool_sharding(env, shape):
+    """The pool's layout on ``env``'s mesh, for a pool of ``shape`` (L,
+    blocks, block, K, dh): replicated over 'data' (and 'pod'), its kv heads
+    over 'model' where ``K % tp == 0``, else replicated there too."""
+    return env.named(shape, [None, None, None, "model", None])
+
+
 class PagedKVPool:
     def __init__(self, n_layers: int, num_blocks: int, block_size: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 headroom_blocks: int = 0, device="cuda"):
+                 headroom_blocks: int = 0, device="cuda", env=None):
         self.L = n_layers
         # nominal (policy-visible) capacity: what WA-LRU/TTL budget against
         self.num_blocks = num_blocks
@@ -53,14 +68,41 @@ class PagedKVPool:
         self.device = torch.device(device)
         shape = (n_layers, self.total_blocks, block_size, n_kv_heads,
                  head_dim)
-        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.env = env if env is not None and env.mesh is not None else None
+        self.heads = slice(0, n_kv_heads)      # the kv heads this rank holds
+        if self.env is None:
+            self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+            self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        else:
+            self.k_pool, self.v_pool = (self._sharded_zeros(shape, dtype)
+                                        for _ in range(2))
         self.free: List[int] = list(range(self.total_blocks))
         self.tables: Dict[str, List[int]] = {}
         self.lens: Dict[str, int] = {}
         # slot-bound sessions: their blocks live in the headroom and are
         # invisible to the parked-capacity accounting below
         self.resident: Set[str] = set()
+
+    def _sharded_zeros(self, shape, dtype):
+        """A zero DTensor of ``shape`` laid out by ``pool_sharding``, made
+        from this rank's shard alone; sets ``heads``."""
+        from torch.distributed.tensor import DTensor
+        from repro_torch.models.sharding import axis_index, contiguous_strides
+        sh = pool_sharding(self.env, shape)
+        local = sh.shard_shape(shape)
+        k0 = axis_index(self.env, sh.spec[3]) * local[3]
+        self.heads = slice(k0, k0 + local[3])
+        return DTensor.from_local(
+            torch.zeros(local, dtype=dtype, device=self.device),
+            self.env.mesh, sh.placements, run_check=False,
+            shape=torch.Size(shape), stride=contiguous_strides(shape))
+
+    def _locals(self):
+        """This rank's (k, v) pool tensors (the pools themselves with no
+        mesh)."""
+        if self.env is None:
+            return self.k_pool, self.v_pool
+        return self.k_pool.to_local(), self.v_pool.to_local()
 
     # -- accounting ------------------------------------------------------
     @property
@@ -188,10 +230,9 @@ class PagedKVPool:
                                dtype=torch.long, device=self.device)
         offs = torch.as_tensor(tok % self.block, dtype=torch.long,
                                device=self.device)
-        kd = k[:, :n_new].to(self.k_pool.dtype)
-        vd = v[:, :n_new].to(self.v_pool.dtype)
-        self.k_pool[:, bids, offs] = kd
-        self.v_pool[:, bids, offs] = vd
+        kp, vp = self._locals()
+        kp[:, bids, offs] = k[:, :n_new, self.heads].to(kp.dtype)
+        vp[:, bids, offs] = v[:, :n_new, self.heads].to(vp.dtype)
         self.lens[sid] = end
 
     def extend_parked(self, sid: str, k: torch.Tensor, v: torch.Tensor,
@@ -280,8 +321,9 @@ class PagedKVPool:
         kb = k.reshape(self.L, nb, self.block, self.K, self.dh)
         vb = v.reshape(self.L, nb, self.block, self.K, self.dh)
         idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
-        self.k_pool[:, idx] = kb.to(self.k_pool.dtype)
-        self.v_pool[:, idx] = vb.to(self.v_pool.dtype)
+        kp, vp = self._locals()
+        kp[:, idx] = kb[:, :, :, self.heads].to(kp.dtype)
+        vp[:, idx] = vb[:, :, :, self.heads].to(vp.dtype)
         self.tables[sid] = blocks
         self.lens[sid] = n_tokens
         return True
@@ -295,10 +337,14 @@ class PagedKVPool:
         if blocks is None:
             return None
         idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
-        k = self.k_pool[:, idx].reshape(self.L, -1, self.K, self.dh)
-        v = self.v_pool[:, idx].reshape(self.L, -1, self.K, self.dh)
+        kp, vp = self._locals()
         n = self.lens[sid]
-        return k[:, :n], v[:, :n], n
+        k = kp[:, idx].reshape(self.L, -1, kp.shape[3], self.dh)[:, :n]
+        v = vp[:, idx].reshape(self.L, -1, vp.shape[3], self.dh)[:, :n]
+        if kp.shape[3] != self.K:       # this rank's kv heads: gather them
+            from repro_torch.models.sharding import all_gather
+            k, v = (all_gather(t, self.env, "model", 2) for t in (k, v))
+        return k, v, n
 
     def block_table_array(self, sid: str, max_blocks: int) -> np.ndarray:
         """Padded int32 block table (host array) for the paged-decode

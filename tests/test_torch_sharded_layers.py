@@ -9,10 +9,11 @@ guards of the sharded path:
 - ``gqa_attention_full`` on a mesh against the reference's, for each way
   a rank's q heads read the kv heads (``_kv_for_heads``): whole groups,
   inside one group, and neither (kv expanded to H heads);
-- the kernel wrappers refuse a DTensor; a mesh with an unported family,
-  ``forward_train`` or ``decode_step_paged`` raises
-  ``NotImplementedError`` naming its ROADMAP item; ``threaded_world``
-  fails, and does not hang, when a rank raises or overruns its limit."""
+- the kernel wrappers refuse a DTensor; ``forward_train`` on a mesh
+  raises ``NotImplementedError`` naming its ROADMAP item, for every
+  family, and ``decode_step_paged`` on a mesh refuses only the families
+  it does not cover; ``threaded_world`` fails, and does not hang, when a
+  rank raises or overruns its limit."""
 import dataclasses
 import time
 
@@ -186,34 +187,41 @@ def test_kernel_wrappers_refuse_a_dtensor():
                                  t_seamless.tiny()],
                          ids=lambda c: c.name)
 def test_unported_families_refuse_a_mesh(cfg):
+    """The families served on a mesh since ROADMAP Queue 1 item 3b still
+    refuse to train on one (item 3c), and paged decode refuses them as it
+    does on one device."""
     def rank(env):
         toks = torch.ones(2, 4, dtype=torch.int32)
-        for call in (lambda: tlm.prefill({}, {"tokens": toks}, cfg, env),
-                     lambda: tlm.forward_logits({}, {"tokens": toks}, cfg,
-                                                env),
-                     lambda: tlm.decode_step({}, toks[:, :1], {}, 4, cfg,
-                                             env)):
-            with pytest.raises(NotImplementedError, match="item 3b"):
-                call()
+        batch = ({"frames": torch.zeros(2, 4, cfg.d_model),
+                  "tgt_tokens": toks, "tgt_labels": toks} if cfg.enc_dec
+                 else {"tokens": toks, "labels": toks})
+        with pytest.raises(NotImplementedError, match="item 3c"):
+            tlm.forward_train({}, batch, cfg, env)
+        with pytest.raises(ValueError, match="uniform GQA"):
+            tlm.decode_step_paged({}, toks[:, :1], None, None, None, None,
+                                  None, None, cfg, env)
         return True
 
     assert all(on_mesh(1, 2, rank))
 
 
 def test_training_and_paged_decode_refuse_a_mesh():
+    """Training refuses a mesh (ROADMAP Queue 1 item 3c); paged decode
+    on a mesh gets past the mesh check (it then reads the pool, here
+    missing)."""
     cfg = t_llama.tiny()
 
     def rank(env):
         toks = torch.ones(2, 4, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            tlm.forward_train({}, {"tokens": toks, "labels": toks}, cfg, env)
         with pytest.raises(NotImplementedError, match="item 3c"):
+            tlm.forward_train({}, {"tokens": toks, "labels": toks}, cfg, env)
+        with pytest.raises(KeyError, match="embed"):
             tlm.decode_step_paged({}, toks[:, :1], None, None, None, None,
                                   None, None, cfg, env)
         return True
 
     assert all(on_mesh(1, 2, rank))
-    with pytest.raises(NotImplementedError, match="item 3b"):
+    with pytest.raises(NotImplementedError, match="item 3c"):
         ttrain.train_loop("micro", steps=1, mesh=object(), device="cpu")
 
 
