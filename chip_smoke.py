@@ -211,6 +211,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    beside the one-device ones, and ``max_memory_allocated``.  Phase 2
    checks and times the kernels at the ranks' shapes
    (``FLASH_RANK``, ``PAGED_RANK``).
+15. Sharded training, in a child process (``chip_smoke.py
+   --sharded-train CARD [arch ...]``, the cells named or all), on phase
+   13's mesh under ``train_loop``'s mesh options (sp, fsdp, EP):
+   llama3.2-3b (depth 4, B=2 x 1024): step 0's loss and every gradient
+   leaf against the one-device run's, two planted transposes (ln1's
+   gradient left as each rank's share, the FSDP gather of wq cut), then
+   ``train_loop`` for 4 AdamW steps each way (losses and gnorms), a
+   checkpoint at step 2 saved from the mesh and restored on the mesh and
+   on one device (bit-equal); mixtral-8x22b (depth 2, EP, no pair
+   dropped), rwkv6-7b (depth 1 in bf16; depth 4 in f32 with ln_x's
+   output unrounded, beside the one-device gradients' own spread when
+   the params move by one f32 ulp), jamba (one superblock; planted: its
+   conv taken on the sequence shard) and seamless-m4t (4 + 4): the loss
+   and every gradient leaf of one step.  No kernel is launched (all five
+   counted under their paths).  ``--sharded-train CARD --spread`` runs
+   the spread study instead (PERF.md §6): rwkv6-7b in f32 with ln_x
+   rounded (depths 2 and 4) and unrounded (depth 2), jamba on two seeds.  Limits: ``TOL_SHARDED_LOSS``,
+   ``TOL_SHARDED_GRAD``, ``TOL_SHARDED_STEPS`` (PERF.md).
    Phases 5-6 and 9-10 run through one ``serve_path``, with phases 5-6's
    forward on the prompt and prefill-vs-forward check.  Both phases run
    before a failed check ends the script; each counts its launches under
@@ -3914,6 +3932,778 @@ def rest_main(card: str) -> int:
     return 1 if fails else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded training -- forward_train(env), its backward, sharded
+# AdamW, train_loop(mesh=...) and checkpoints across meshes on 4
+# thread-ranks sharing the card
+# ---------------------------------------------------------------------------
+# A child process (``--sharded-train``), as phases 13 and 14: a ("data",
+# "model") mesh of (2, 2) of thread-ranks on "cuda" under train_loop's
+# mesh options (sp, fsdp, moe_impl "ep", no remat), against the one-device
+# run on the card on the same seed-0 params and batch.  The limits and
+# their reasons are PERF.md's (phase 15's cells, written before the first
+# run on the card): the loss relative to the one-device loss; each
+# gradient leaf's largest |difference| over the leaf's largest one-device
+# magnitude (every element of every leaf: each rank its blocks against the
+# one-device gradient's); the AdamW steps' losses and global norms
+# relative.  The MoE cells give each expert room for all of a rank's
+# tokens (capacity factor E / top_k), as the CPU tests do: the one-device
+# run is the dense impl, which drops nothing; no pair may drop.
+TRAIN_MESH = (2, 2)
+TRAIN_OPTS = {"remat": False, "sp": True, "moe_impl": "ep"}
+TOL_SHARDED_LOSS = 2e-3
+TOL_SHARDED_GRAD = 5e-2
+TOL_SHARDED_STEPS = 2e-3
+TRAIN_COUNTS = "SHARDED_TRAIN_LAUNCHES "
+TRAIN_B, TRAIN_S = 2, 512                 # llama3.2-3b: phase 11's 2 x 1024
+TRAIN_DEPTH = {"llama3.2-3b": 4,          # of 28
+               "mixtral-8x22b": 2,        # of 56
+               "rwkv6-7b": 1,             # of 32 in bf16 (PERF.md)
+               "jamba-v0.1-52b": 8}       # of 32: one superblock
+TRAIN_F32_DEPTH = 4                       # rwkv6-7b's f32 cell, of 32
+TRAIN_ENCDEC = (4, 4)                     # seamless: of 24 + 24
+TRAIN_FRAMES, TRAIN_TGT = 512, 128
+TRAIN_STEPS, TRAIN_SAVE = 4, 2
+TRAIN_PLANT_S = 128                       # jamba's planted fault: 2 x 128
+CHUNK = 1 << 24
+
+
+def sharded_train_phase(card: str) -> dict:
+    """Phase 15: ``sharded_train_main`` in a child process; its output
+    echoed, its launch counts by path returned.  Fails unless the child
+    exits 0."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--sharded-train", card], timeout=600,
+                         stdout=subprocess.PIPE, text=True)
+    counts_ = None
+    for line in res.stdout.splitlines():
+        if line.startswith(TRAIN_COUNTS):
+            counts_ = json.loads(line[len(TRAIN_COUNTS):])
+        else:
+            log(line)
+    log(f"  phase 15 wall with the child's start "
+        f"{time.perf_counter() - t0:.1f} s")
+    if res.returncode or counts_ is None:
+        raise AssertionError(f"phase 15 (sharded training) failed: exit "
+                             f"{res.returncode}")
+    return counts_
+
+
+def train_cfg(name, depth=None):
+    """``name``'s config at full width with phase 15's depth (``depth``
+    where given), registered under a name of its own (``train_loop``
+    takes a name)."""
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    cfg = get_config(name)
+    if cfg.enc_dec:
+        ne, nd = TRAIN_ENCDEC
+        cfg = dataclasses.replace(cfg, name=f"{name}-{ne}+{nd}",
+                                  n_enc_layers=ne, n_dec_layers=nd)
+    else:
+        depth = depth or TRAIN_DEPTH[name]
+        cfg = dataclasses.replace(cfg, name=f"{name}-d{depth}",
+                                  n_layers=depth)
+    return register(cfg)
+
+
+def n_layers(cfg) -> int:
+    return cfg.n_enc_layers + cfg.n_dec_layers if cfg.enc_dec \
+        else cfg.n_layers
+
+
+class Collectives:
+    """Counts the collectives each rank thread makes on the threaded
+    process group (``ProcessLocalGroup``'s all-reduce, all-gather and
+    reduce-scatter, the tiled forms included)."""
+
+    def __init__(self):
+        import threading
+        from torch.testing._internal.distributed import multi_threaded_pg
+        self.cls = multi_threaded_pg.ProcessLocalGroup
+        self.mine = threading.local()
+        self.kept = {n: getattr(self.cls, n) for n in
+                     ("allreduce", "allgather", "reduce_scatter")}
+        for name, fn in self.kept.items():
+            setattr(self.cls, name, self._counted(fn))
+
+    def _counted(self, fn):
+        def call(*a, **kw):
+            self.mine.n = getattr(self.mine, "n", 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    def take(self) -> int:
+        n, self.mine.n = getattr(self.mine, "n", 0), 0
+        return n
+
+    def close(self):
+        for name, fn in self.kept.items():
+            setattr(self.cls, name, fn)
+
+
+def train_batch(torch, cfg, seed, S=TRAIN_S):
+    """A seeded B x S training batch on the card (seamless: frames x 0.02,
+    target tokens and labels)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def ints(s):
+        return torch.randint(0, cfg.vocab, (TRAIN_B, s), generator=gen,
+                             device="cuda")
+    if cfg.enc_dec:
+        return {"frames": torch.randn(TRAIN_B, TRAIN_FRAMES, cfg.d_model,
+                                      generator=gen, device="cuda") * 0.02,
+                "tgt_tokens": ints(TRAIN_TGT), "tgt_labels": ints(TRAIN_TGT)}
+    return {"tokens": ints(S), "labels": ints(S)}
+
+
+def train_one(torch, lm, cfg, params, batch, routing=None, warm=False):
+    """The one-device loss and gradients on the card (after an unmeasured
+    forward and backward where ``warm``); forward and backward timed apart
+    (``routing`` records the measured forward's MoE picks); the gradients
+    moved to host memory with each leaf's largest magnitude.  Returns
+    {"loss", "grads", "tops", "t_fwd", "t_bwd"}; the params' grads
+    cleared."""
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    if warm:
+        lm.forward_train(params, batch, cfg).backward()
+        clear_grads(params)
+    if routing:
+        routing.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = lm.forward_train(params, batch, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if routing:
+        routing.restore()
+    loss.backward()
+    torch.cuda.synchronize()
+    out = {"loss": float(loss.detach()), "t_fwd": t1 - t0,
+           "t_bwd": time.perf_counter() - t1, "grads": {}, "tops": {}}
+    for name, p in named_leaves(params):
+        out["tops"][name] = float(p.grad.abs().max())
+        out["grads"][name] = p.grad.to("cpu")
+        p.grad = None
+    return out
+
+
+def local_block(t):
+    """(offset, shape) of this rank's block of the DTensor t."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return tuple(slice(o, o + n) for o, n in zip(off, shape))
+
+
+def grad_errs(torch, ps, one):
+    """Each leaf's largest |sharded - one-device| over this rank's blocks
+    (the one-device gradient's block copied to the card a slab at a
+    time), and whether every gradient is laid out as its param."""
+    errs, laid = {}, True
+    for name, p in named_leaves(ps):
+        g = p.grad
+        laid = laid and g is not None and g.placements == p.placements
+        local = g.to_local().reshape(-1)
+        block = one["grads"][name][local_block(p)].contiguous().reshape(-1)
+        errs[name] = max(
+            float((local[i:i + CHUNK].float()
+                   - block[i:i + CHUNK].to("cuda").float()).abs().max())
+            for i in range(0, local.numel(), CHUNK))
+    return errs, laid
+
+
+def train_world(torch, cfg, held, batch, one, wrappers, plants=(),
+                after=None, warm=False):
+    """4 thread-ranks: the params (``held["params"]``, the one reference
+    to them) distributed by ``param_shardings`` (the whole tree then
+    dropped); ``lm.forward_train`` and its backward timed apart with their
+    collectives counted (after an unmeasured pair where ``warm``), the
+    launches counted from 0; each leaf's gradient against ``one``'s
+    (``grad_errs``); each planted fault (name, put, take[, batch, one]:
+    rank 0 calls ``put()`` before and ``take()`` after the fault's forward
+    and backward, on ``batch`` against ``one`` where given) and its
+    gradients' errors; then ``after(env, rank)`` (its result under
+    "after").  Returns every rank's dict."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_worker_mesh, threaded_world
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import ShardingEnv, distribute
+
+    dp, tp = TRAIN_MESH
+    coll = Collectives()
+
+    def rank(r):
+        env = ShardingEnv(make_worker_mesh(dp * tp, tp=tp), TRAIN_OPTS)
+        ps = distribute(held["params"], lm.param_shardings(cfg, env))
+        for _, p in named_leaves(ps):
+            p.requires_grad_(True)
+        out = {"plants": {}}
+
+        def sync():
+            torch.cuda.synchronize()
+            dist.barrier()
+            return time.perf_counter()
+
+        sync()
+        if r == 0:
+            held.clear()                 # the whole params: shards only
+            reset(wrappers)
+        if warm:
+            lm.forward_train(ps, batch, cfg, env).backward()
+            clear_grads(ps)
+        t0 = sync()
+        coll.take()
+        loss = lm.forward_train(ps, batch, cfg, env)
+        n_fwd = coll.take()
+        t1 = sync()
+        loss.backward()
+        n_bwd = coll.take()
+        t2 = sync()
+        out.update(loss=float(loss.detach()), t_fwd=t1 - t0, t_bwd=t2 - t1,
+                   n_fwd=n_fwd, n_bwd=n_bwd)
+        del loss
+        if r == 0:
+            out["launches"] = counts(wrappers)
+        out["errs"], out["laid"] = grad_errs(torch, ps, one)
+        for name, put, take, *own in plants:
+            p_batch, p_one = own or (batch, one)
+            clear_grads(ps)
+            sync()
+            if r == 0:
+                put()
+            sync()
+            lm.forward_train(ps, p_batch, cfg, env).backward()
+            sync()
+            if r == 0:
+                take()
+            out["plants"][name] = grad_errs(torch, ps, p_one)[0]
+        clear_grads(ps)
+        del ps
+        if after is not None:
+            out["after"] = after(env, r)
+        return out
+
+    try:
+        with threaded_world(dp * tp, timeout=600) as run:
+            return run(rank)
+    finally:
+        coll.close()
+
+
+def held_train(label, cfg, one, outs, fails, card, plant_leaves=None,
+               own=()):
+    """The sharded loss (equal on every rank) and every gradient leaf
+    against the one-device run's; each planted fault past the limit on
+    its leaves (all where None), against ``own``'s one-device run where
+    the faults ran on a batch of their own.  Logs the walls and the
+    collectives."""
+    losses = [o["loss"] for o in outs]
+    rel = abs(losses[0] - one["loss"]) / abs(one["loss"])
+    errs = {n: max(o["errs"][n] for o in outs) / max(one["tops"][n], 1e-30)
+            for n in one["tops"]}
+    worst = max(errs, key=errs.get)
+    laid = all(o["laid"] for o in outs)
+    log(f"  {label}: loss {losses[0]:.6f} on every rank: "
+        f"{len(set(losses)) == 1}; one device {one['loss']:.6f}, "
+        f"{rel:.3e} relative (limit {TOL_SHARDED_LOSS:g}); gradients laid "
+        f"out as the params: {laid}; largest leaf error {errs[worst]:.3e} "
+        f"({worst}) of {len(errs)} leaves (limit {TOL_SHARDED_GRAD:g})")
+    if len(set(losses)) != 1 or not rel < TOL_SHARDED_LOSS:
+        fails.append(f"{label}: losses {losses} against {one['loss']}")
+    if not laid:
+        fails.append(f"{label}: a gradient not laid out as its param")
+    bad = {n: e for n, e in errs.items() if not e < TOL_SHARDED_GRAD}
+    if bad:
+        fails.append(f"{label}: gradient leaves past the limit {bad}")
+    log(f"  {label}: the next leaves' errors "
+        + ", ".join(f"{n} {errs[n]:.3e}" for n in sorted(
+            errs, key=errs.get, reverse=True)[1:5]))
+    per = n_layers(cfg)
+    log(f"  {label} walls (4 thread-ranks sharing one card): forward "
+        f"{outs[0]['t_fwd']:.3f} s, backward {outs[0]['t_bwd']:.3f} s; one "
+        f"device forward {one['t_fwd']:.3f} s, backward {one['t_bwd']:.3f} "
+        f"s [{card}]; collectives a layer and rank: forward "
+        f"{outs[0]['n_fwd'] / per:.1f}, backward "
+        f"{outs[0]['n_bwd'] / per:.1f}")
+    p_one = own[1] if own else one
+    for name, leaves in (plant_leaves or {}).items():
+        got = {n: max(o["plants"][name][n] for o in outs)
+               / max(p_one["tops"][n], 1e-30) for n in p_one["tops"]}
+        names = leaves or [max(got, key=got.get)]
+        seen = max(got[n] for n in names)
+        log(f"  planted fault, {name}: {seen:.3e} on {names} (must reach "
+            f"{TOL_SHARDED_GRAD:g})")
+        if not seen >= TOL_SHARDED_GRAD:
+            fails.append(f"{label}: planted {name} unseen ({seen:.3e})")
+
+
+def zero_launches(label, outs, fails):
+    n = outs[0]["launches"]
+    log(f"  {label} launches {n} (none expected: no kernel has a "
+        f"backward)")
+    if any(n.values()):
+        fails.append(f"{label} launched {n}")
+    return n
+
+
+def swap_in(mod, name, fn):
+    """(put, take) of a planted fault: ``mod.name`` replaced by
+    ``fn(mod.name)``, then put back."""
+    kept = getattr(mod, name)
+    return (lambda: setattr(mod, name, fn(kept)),
+            lambda: setattr(mod, name, kept))
+
+
+def fsdp_cut(gather):
+    """``sharding._gather_mesh`` whose gathers over 'data' (the FSDP
+    gathers) transpose to a cut: a weight's gradient misses the other
+    data rank's rows (planted)."""
+    import torch
+
+    class CutBack(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, out, n, dim, r):
+            ctx.n, ctx.dim, ctx.r = n, dim, r
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            k = g.shape[ctx.dim] // ctx.n
+            return (g.narrow(ctx.dim, ctx.r * k, k), None, None, None,
+                    None)
+
+    def planted(t, mesh, axis, dim):
+        if axis != "data":
+            return gather(t, mesh, axis, dim)
+        with torch.no_grad():
+            out = gather(t, mesh, axis, dim)
+        return CutBack.apply(t, out, mesh.size(0), dim,
+                             mesh.get_local_rank("data"))
+    return planted
+
+
+def conv_on_shards(conv):
+    """jamba's causal conv taken on each of the 'model' sequence shards
+    alone (planted): each shard after the first misses the d_conv - 1
+    tokens before it."""
+    import torch
+
+    def planted(x, w, b):
+        return torch.cat([conv(p, w, b) for p in
+                          x.chunk(TRAIN_MESH[1], dim=1)], dim=1)
+    return planted
+
+
+def room_for_all(L, cfg):
+    """(put, take): ``moe_ep`` with room in each expert for all of a
+    rank's tokens."""
+    import functools
+    kept = L.moe_ep
+    put = functools.partial(kept, capacity_factor=cfg.n_experts / cfg.top_k)
+    return (lambda: setattr(L, "moe_ep", put),
+            lambda: setattr(L, "moe_ep", kept))
+
+
+def dropped_pairs(L):
+    """``layers._dispatch`` counting the pairs a rank's capacity drops;
+    returns (the counts, take)."""
+    kept, drops = L._dispatch, []
+
+    def counted(top_p, top_e, e_start, e_local, capacity):
+        out = kept(top_p, top_e, e_start, e_local, capacity)
+        mine = (top_e >= e_start) & (top_e < e_start + e_local)
+        drops.append(int(mine.sum()) - int(out[0].sum()))
+        return out
+    L._dispatch = counted
+    return drops, lambda: setattr(L, "_dispatch", kept)
+
+
+def ln_x_f32(x, scale, n_heads, eps=1e-5):
+    """rwkv6's ``group_norm_heads`` (ln_x) with its output left in f32:
+    the port rounds it to bf16, as the reference does, which an f32 run
+    would otherwise keep."""
+    import torch
+    orig = x.shape
+    x = x.reshape(*orig[:-1], n_heads, orig[-1] // n_heads).float()
+    x = (x - x.mean(dim=-1, keepdim=True)) * torch.rsqrt(
+        x.var(dim=-1, unbiased=False, keepdim=True) + eps)
+    return x.reshape(orig) * scale.float()
+
+
+def one_ulp(torch, params, seed):
+    """``params`` each moved by about one f32 ulp: times 1 + 2^-24 n, n
+    standard normal from a seeded generator."""
+    from repro_torch.train.optimizer import tree_map
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tree_map(lambda t: (t * (1 + 2.0 ** -24 * torch.randn(
+        t.shape, generator=gen, device="cuda"))).detach(), params)
+
+
+def host_spread(torch, a, b):
+    """(the largest leaf error of ``b``'s host gradients against ``a``'s,
+    over ``a``'s largest magnitude in the leaf; that leaf), compared on
+    the card a slab at a time."""
+    errs = {}
+    for name, g in a["grads"].items():
+        x, y = g.reshape(-1), b["grads"][name].reshape(-1)
+        errs[name] = max(
+            float((x[i:i + CHUNK].to("cuda").float()
+                   - y[i:i + CHUNK].to("cuda").float()).abs().max())
+            for i in range(0, x.numel(), CHUNK)) / max(a["tops"][name],
+                                                        1e-30)
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
+               plant_leaves=None, plant_S=None, f32=None, depth=None):
+    """One step's loss and gradients of ``name`` (phase 15's depth, or
+    ``depth``) on the mesh against one device: the MoE archs held to the
+    one-device run's picks and asserted to drop no pair.  The planted
+    faults run on a batch of ``plant_S`` tokens a row where given,
+    against one device on it.  With ``f32`` ("unrounded": rwkv6's ln_x
+    output left in f32 in both runs, ``ln_x_f32``; "rounded": as the port
+    rounds it) every param is f32 in both runs, and the one-device
+    gradients' own spread (the params moved by one f32 ulp, ``one_ulp``)
+    is logged beside the mesh's error."""
+    import torch.distributed as dist
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import rwkv as R
+    from repro_torch.models.routing_replay import SameRouting
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = train_cfg(name, depth)
+    label = f"sharded train {name.split('-')[0]}"
+    if f32:
+        label += f" (f32, ln_x {f32}, depth {cfg.n_layers})"
+    batch = train_batch(torch, cfg, seed)
+    params = ready(torch, lm, cfg)
+    takes = []
+    if f32:
+        params = tree_map(lambda t: t.float(), params)
+        if f32 == "unrounded":
+            put, take = swap_in(R, "group_norm_heads", lambda _: ln_x_f32)
+            put()
+            takes.append(take)
+    routing = SameRouting() if cfg.n_experts else None
+    one = train_one(torch, lm, cfg, params, batch, routing)
+    if f32:
+        moved = one_ulp(torch, params, seed)
+        spread = host_spread(torch, one, train_one(torch, lm, cfg, moved,
+                                                   batch))
+        del moved
+        log(f"  {label}: one device against itself with the params moved "
+            f"by one f32 ulp: largest leaf error {spread[0]:.3e} "
+            f"({spread[1]}) [{card}]")
+    own, p_routing = (), None
+    if plants and plant_S:
+        p_routing = SameRouting() if cfg.n_experts else None
+        p_batch = train_batch(torch, cfg, seed, plant_S)
+        own = (p_batch, train_one(torch, lm, cfg, params, p_batch,
+                                  p_routing))
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"params": params}
+    del params
+    tp = TRAIN_MESH[1]
+
+    def rows(n_rows, m):           # a rank routes its data shard's tokens
+        return 0 if n_rows == m else (dist.get_rank() // tp) * m
+
+    drops = []
+    if routing:
+        routing.replay(rows=rows)
+        put, take = room_for_all(L, cfg)
+        put()
+        drops, undo = dropped_pairs(L)
+        takes += [take, undo, routing.restore]
+        replay = p_routing or routing
+        plants = tuple((n, lambda p=p: (p(), replay.replay(rows=rows)), t)
+                       for n, p, t in plants)
+    plants = tuple(plant + own for plant in plants)
+    try:
+        outs = train_world(torch, cfg, held, batch, one, wrappers, plants)
+    finally:
+        for take in takes:
+            take()
+    n = zero_launches(label, outs, fails)
+    held_train(label, cfg, one, outs, fails, card, plant_leaves, own)
+    if routing:
+        log(f"  {label}: router picks parted at near-ties {routing.flips}; "
+            f"pairs dropped {sum(drops)} (must be 0)")
+        if sum(drops):
+            fails.append(f"{label}: moe_ep dropped {sum(drops)} pairs")
+    del one, outs, own
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
+
+
+def conditioning(torch, card, name, depth, seed):
+    """``name`` at ``depth``, one device: its bf16 gradients against the
+    same params' in f32 (the smallest leaf cosine, the largest leaf error
+    of the f32 leaf's largest magnitude): how far bf16 rounding alone
+    moves the gradients, which bounds what a sharded run can be held
+    to."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import tree_map
+    cfg = dataclasses.replace(get_config(name), n_layers=depth)
+    batch = train_batch(torch, cfg, seed)
+    params = lm.init_params(cfg, 0, "cuda")
+    grads = []
+    for tree in (params, tree_map(lambda t: t.float(), params)):
+        for _, p in named_leaves(tree):
+            p.requires_grad_(True)
+        lm.forward_train(tree, batch, cfg).backward()
+        grads.append({n: p.grad.float() for n, p in named_leaves(tree)})
+        clear_grads(tree)
+    b16, f32 = grads
+    cos = min(float((b16[n] * f32[n]).sum()
+                    / (b16[n].norm() * f32[n].norm() + 1e-30)) for n in f32)
+    err = max(float((b16[n] - f32[n]).abs().max() / f32[n].abs().max())
+              for n in f32)
+    log(f"  {name} at depth {depth}, one device: bf16 gradients against "
+        f"f32 ones, smallest leaf cosine {cos:.4f}, largest leaf error "
+        f"{err:.3e} [{card}]")
+    del params, grads, b16, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_train_llama(torch, card, wrappers, fails):
+    """llama3.2-3b at full width, depth 4, B=2 x 1024 ``SyntheticLM``
+    tokens (phase 11's batch): step 0 on one device against the mesh (the
+    loss, every gradient leaf; planted: ln1's gradient left as each
+    rank's share, the FSDP gather of wq transposed as a cut); then
+    ``train_loop`` for 4 AdamW steps each way (losses and gnorms), the
+    mesh's saving a checkpoint at step 2 and resuming from it; that
+    checkpoint restored on the mesh and on one device, every rank's
+    blocks bit-equal to the saving run's state."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as SH
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import abstract_opt_state, opt_pspecs
+
+    cfg = train_cfg("llama3.2-3b")
+    label = "sharded train llama3.2-3b"
+    B, S, lr = 2, 1024, 3e-4
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in SyntheticLM(cfg, B, S, seed=0).next().items()}
+    one = train_one(torch, lm, cfg, ready(torch, lm, cfg), batch, warm=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnorms = {"one": [], "mesh": []}
+    make = T.make_train_step
+
+    def recording(key):
+        def build(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(*args):
+                import torch.distributed as dist
+                loss, gnorm = step(*args)
+                if key == "one" or dist.get_rank() == 0:
+                    gnorms[key].append(float(gnorm))
+                return loss, gnorm
+            return run
+        return build
+
+    kw = dict(batch=B, seq=S, lr=lr, seed=0, log_every=1)
+    T.make_train_step = recording("one")
+    try:
+        t0 = time.perf_counter()
+        _, _, losses_one = T.train_loop(cfg.name, steps=TRAIN_STEPS,
+                                        device="cuda", **kw)
+        t_one = time.perf_counter() - t0
+    finally:
+        T.make_train_step = make
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp()
+
+    def loop(env, r):
+        """train_loop on the mesh: 2 steps and a checkpoint, then resumed
+        to step 4; the checkpoint restored on the mesh."""
+        t0 = time.perf_counter()
+        p2, o2, first = T.train_loop(cfg.name, steps=TRAIN_SAVE,
+                                     mesh=env.mesh, ckpt_dir=d,
+                                     ckpt_every=TRAIN_SAVE, **kw)
+        t_save = time.perf_counter() - t0
+        leaves = (named_values(p2) + named_values(o2.mu)
+                  + named_values(o2.nu))
+        saved = [(t.to_local().clone(), local_block(t)) for t in leaves]
+        del p2, o2, leaves
+        t0 = time.perf_counter()
+        _, _, rest = T.train_loop(cfg.name, steps=TRAIN_STEPS,
+                                  mesh=env.mesh, ckpt_dir=d, resume=True,
+                                  **kw)
+        t_resume = time.perf_counter() - t0
+        sh = lm.param_shardings(cfg, env)
+        ap = lm.abstract_params(cfg)
+        _, p3, o3, _ = ckpt.restore_checkpoint(
+            d, ap, abstract_opt_state(ap), step=TRAIN_SAVE, device="cuda",
+            shardings=(sh, opt_pspecs(sh)))
+        back = named_values(p3) + named_values(o3.mu) + named_values(o3.nu)
+        equal = all(torch.equal(a, b.to_local())
+                    for (a, _), b in zip(saved, back))
+        return {"losses": first + rest, "equal": equal, "saved": saved,
+                "t_save": t_save, "t_resume": t_resume}
+
+    T.make_train_step = recording("mesh")
+    try:
+        outs = train_world(
+            torch, cfg, {"params": ready(torch, lm, cfg)}, batch, one,
+            wrappers, warm=True, after=loop,
+            plants=(("ln1's gradient left as each rank's share",
+                     *swap_in(SH, "copies", lambda f: lambda tree: tree)),
+                    ("the FSDP gather of wq transposed as a cut",
+                     *swap_in(SH, "_gather_mesh", fsdp_cut))))
+    finally:
+        T.make_train_step = make
+    n = zero_launches(label, outs, fails)
+    held_train(label, cfg, one, outs, fails, card,
+               {"ln1's gradient left as each rank's share": ["layers/ln1"],
+                "the FSDP gather of wq transposed as a cut":
+                    ["layers/attn/wq"]})
+    got = outs[0]["after"]
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(got["losses"] + gnorms["mesh"], losses_one + gnorms["one"])]
+    log(f"  train_loop, {TRAIN_STEPS} AdamW steps at lr {lr} [{card}]: one "
+        f"device losses {[round(x, 5) for x in losses_one]} gnorms "
+        f"{[round(x, 4) for x in gnorms['one']]} ({t_one:.1f} s); mesh "
+        f"losses {[round(x, 5) for x in got['losses']]} gnorms "
+        f"{[round(x, 4) for x in gnorms['mesh']]} (2 steps and the "
+        f"checkpoint {got['t_save']:.1f} s, resumed to step {TRAIN_STEPS} "
+        f"{got['t_resume']:.1f} s); largest relative difference "
+        f"{max(rel):.3e} (limit {TOL_SHARDED_STEPS:g})")
+    if len(rel) != 2 * TRAIN_STEPS or not max(rel) < TOL_SHARDED_STEPS:
+        fails.append(f"{label}: AdamW steps' losses or gnorms past the "
+                     f"limit ({rel})")
+    mesh_equal = all(o["after"]["equal"] for o in outs)
+    ap = lm.abstract_params(cfg)
+    _, p1, o1, _ = ckpt.restore_checkpoint(d, ap, abstract_opt_state(ap),
+                                           step=TRAIN_SAVE, device="cuda")
+    whole = named_values(p1) + named_values(o1.mu) + named_values(o1.nu)
+    one_equal = all(torch.equal(a, whole[i][index])
+                    for o in outs
+                    for i, (a, index) in enumerate(o["after"]["saved"]))
+    log(f"  the step-{TRAIN_SAVE} checkpoint (saved from the mesh) "
+        f"restored: on the mesh, every rank's state bit-equal "
+        f"{mesh_equal}; on one device, every rank's blocks bit-equal "
+        f"{one_equal}")
+    if not (mesh_equal and one_equal):
+        fails.append(f"{label}: a restored state differs from the saved")
+    del p1, o1, whole, outs
+    shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
+
+
+def named_values(tree):
+    return [t for _, t in named_leaves(tree)]
+
+
+def spread_study(torch, card, wrappers):
+    """``--spread``: how far the mesh's gradients part from one device's
+    where the gradients are ill-conditioned.  rwkv6-7b in f32 at depths 2
+    and 4 with its ln_x output rounded to bf16 (as the port does), and
+    at depth 2 unrounded (phase 15 runs depth 4 so), each beside one
+    device's own spread under a one-ulp move of the params; jamba (phase 15's cell without its planted fault) on
+    its seed twice and on a second seed.  Logs every reading against the
+    limit; fails nothing."""
+    readings = []
+    for f32, depth in (("rounded", 2), ("rounded", 4), ("unrounded", 2)):
+        log(f"spread: rwkv6-7b in f32, ln_x {f32}, depth {depth}")
+        train_cell(torch, card, wrappers, readings, "rwkv6-7b", 22,
+                   f32=f32, depth=depth)
+    for seed in (23, 23, 25):
+        log(f"spread: jamba-v0.1-52b, seed {seed}")
+        train_cell(torch, card, wrappers, readings, "jamba-v0.1-52b", seed)
+    for r in readings:
+        log(f"  past a limit (a reading, not a failure here): {r}")
+
+
+def sharded_train_main(card: str) -> int:
+    """Phase 15 in the child: llama3.2-3b (depth 4: step 0, AdamW,
+    checkpoints across meshes), mixtral-8x22b (depth 2), rwkv6-7b (depth
+    1 in bf16, depth 4 in f32), jamba (depth 8) and seamless-m4t (4 + 4)
+    trained on a (2, 2) mesh of thread-ranks against their one-device
+    runs (``--spread``: ``spread_study`` instead).  Prints the launch
+    counts by path on a line of their own; exit 0 only when every check
+    held."""
+    import os
+    # 4 ranks' shards, gradients and gathered expert weights share the
+    # card: segments that grow keep the allocator's blocks from splitting
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --sharded-train: torch.cuda.is_available() is "
+            "false")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.configs import load_all
+    from repro_torch.models import mamba as M
+    load_all()
+    wrappers, fails, by_path = all_wrappers(), [], {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    only = set(sys.argv[3:])         # cells by arch name; all where none
+    if only == {"--spread"}:
+        spread_study(torch, card, wrappers)
+        return 0
+    if not only or "llama3.2-3b" in only:
+        log(f"phase 15: llama3.2-3b (depth {TRAIN_DEPTH['llama3.2-3b']}) "
+            f"trained on a (2, 2) mesh of thread-ranks")
+        by_path["sharded train llama3.2-3b"] = sharded_train_llama(
+            torch, card, wrappers, fails)
+    for key, name, seed, plants, leaves, plant_S in (
+            ("sharded train mixtral", "mixtral-8x22b", 21, (), None, None),
+            ("sharded train rwkv6-7b", "rwkv6-7b", 22, (), None, None),
+            ("sharded train jamba", "jamba-v0.1-52b", 23,
+             (("jamba's conv taken on the sequence shard",
+               *swap_in(M, "_causal_depthwise_conv", conv_on_shards)),),
+             {"jamba's conv taken on the sequence shard": None},
+             TRAIN_PLANT_S),
+            ("sharded train seamless", "seamless-m4t-large-v2", 24, (),
+             None, None)):
+        if only and name not in only:
+            continue
+        log(f"phase 15: {name} trained on the same mesh")
+        by_path[key] = train_cell(torch, card, wrappers, fails, name, seed,
+                                  plants, leaves, plant_S)
+        if name == "rwkv6-7b":             # why its cell is one layer deep
+            conditioning(torch, card, name, 2, seed)
+            log(f"phase 15: {name} in f32 (depth {TRAIN_F32_DEPTH}) on the "
+                f"same mesh")
+            by_path[key + " f32"] = train_cell(
+                torch, card, wrappers, fails, name, seed, f32="unrounded",
+                depth=TRAIN_F32_DEPTH)
+    log(f"  phase 15 max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB [{card}]; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    print(TRAIN_COUNTS + json.dumps(by_path), flush=True)
+    for f in fails:
+        log(f"  FAILED: {f}")
+    return 1 if fails else 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4014,9 +4804,14 @@ def main() -> int:
     log("phase 14: sharded serving II (rwkv6-7b, jamba, seamless-m4t and the "
         "engine on 4 thread-ranks; a child process)")
     by_path.update(rest_phase(card))
+    log("phase 15: sharded training (llama3.2-3b, mixtral-8x22b, rwkv6-7b, "
+        "jamba and seamless-m4t on 4 thread-ranks; a child process)")
+    by_path.update(sharded_train_phase(card))
     for rec in kernels:
-        rec["launches_by_path"] = {p: n[rec["name"]] for p, n in
-                                   by_path.items() if n[rec["name"]]}
+        # the sharded training paths are listed with their zero launches
+        rec["launches_by_path"] = {
+            p: n[rec["name"]] for p, n in by_path.items()
+            if n[rec["name"]] or p.startswith("sharded train")}
         rec["launches"] = sum(rec["launches_by_path"].values())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4032,4 +4827,6 @@ if __name__ == "__main__":
         sys.exit(sharded_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sharded-rest"]:
         sys.exit(rest_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-train"]:
+        sys.exit(sharded_train_main(sys.argv[2]))
     sys.exit(main())

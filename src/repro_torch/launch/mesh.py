@@ -12,6 +12,10 @@ only rank 0's tensors exist.  It is the counterpart of the reference's
 torch's threaded process group, whose collectives are plain tensor copies
 and sums: every rank computes, and the ranks may share one device.  It
 holds a sharded model to its one-device run on the CPU, or on one card.
+Each rank thread runs its own backward (the threaded group sets
+``torch.autograd.set_multithreading_enabled(False)`` in the thread that
+builds it), so the transposes of the collectives (``models.sharding``)
+meet in every rank's thread.
 A production run is one process per card on NCCL, set up by the caller;
 the meshes below are the same either way.
 
@@ -73,6 +77,11 @@ def threaded_world(n: int, timeout: float = 120.0):
 
         def worker(rank):
             try:
+                # the threaded group turns the engine's device threads off
+                # in the rank's thread as it is built: each rank runs its
+                # own backward, where a shared device thread would run every
+                # rank's CUDA nodes and wait in a collective for ranks
+                # queued behind it
                 dist.init_process_group("threaded", rank=rank, world_size=n,
                                         store=store)
                 try:

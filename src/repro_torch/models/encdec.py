@@ -32,7 +32,8 @@ the rank's q rows and heads over them (``layers.gqa_attention_full``
 with ``kv_override``); the prefill's caches come back laid out by
 ``lm.cache_pspecs`` (every sequence, the cross caches' too, over
 'model'), and a decode step gathers the cross cache's shards for its q
-rows (``layers.cross_attention_decode``).
+rows (``layers.cross_attention_decode``).  ``forward_train`` on a mesh
+runs the same layers on the training route (``train_loss_sharded``).
 """
 from __future__ import annotations
 
@@ -94,23 +95,30 @@ def _run_encoder(params, frames, cfg, opts=None, env=None):
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _run_encoder_sharded(params, frames, cfg, env):
+def _encoder_block_sharded(x, lp, cfg, positions, env, sp, opts=None):
+    h = lm._norm(x, lp["ln1"], cfg)
+    y, _, _ = L.gqa_attention_full(h, lp["attn"], cfg, positions,
+                                   causal=False, env=env,
+                                   **lm._attn_kw(opts))
+    x = lm._add(x, y, env, sp)
+    h = lm._norm(x, lp["ln2"], cfg)
+    return lm._add(x, L.ffn_swiglu(h, lp["mlp"], env), env, sp)
+
+
+def _run_encoder_sharded(params, frames, cfg, env, opts=None):
     """``_run_encoder`` on a mesh: the frames (a tensor every rank holds
     whole, or a DTensor) laid out as the stream; the output normed, laid
-    out as the stream."""
+    out as the stream.  ``opts``: ``lm.mesh_train_opts`` for the training
+    route."""
     sp, bt = env.opts.get("sp", True), env.batch_axes
     fl = (L._local(frames, env, bt, None, None) if lm._is_dtensor(frames)
           else L.shard_of(frames, env, [bt, None, None]))
     x = lm._res_cs(L._global(fl.to(BF16), env, frames.shape,
                              [bt, None, None]), env, sp)
     positions = _positions(x.shape[1], fl.device)
+    block = lm._maybe_remat(_encoder_block_sharded, opts)
     for lp in lm._layers(params["enc_layers"]):
-        h = lm._norm(x, lp["ln1"], cfg)
-        y, _, _ = L.gqa_attention_full(h, lp["attn"], cfg, positions,
-                                       causal=False, env=env)
-        x = lm._add(x, y, env, sp)
-        h = lm._norm(x, lp["ln2"], cfg)
-        x = lm._add(x, L.ffn_swiglu(h, lp["mlp"], env), env, sp)
+        x = block(x, lp, cfg, positions, env, sp, opts)
     return lm._norm(x, params["enc_norm"], cfg)
 
 
@@ -136,13 +144,17 @@ def _decoder_block(x, lp, cfg, positions, enc_out, opts=None):
     return x + L.ffn_swiglu(h, lp["mlp"]), (sk, sv, ck, cv)
 
 
-def _decoder_block_sharded(x, lp, cfg, positions, enc_rows, env, sp):
+def _decoder_block_sharded(x, lp, cfg, positions, enc_rows, env, sp,
+                           opts=None):
     """``_decoder_block`` on a mesh; ``enc_rows`` is the rank's rows of
     the encoder output, whole sequence.  The cache entries are DTensors
-    (self k, v with their rows over the batch axes; cross k, v as well)."""
+    (self k, v with their rows over the batch axes; cross k, v as well);
+    with ``opts`` (the training route) there are none."""
     bt = env.batch_axes
+    kw = lm._attn_kw(opts)
     h = lm._norm(x, lp["ln1"], cfg)
-    y, sk, sv = L.gqa_attention_full(h, lp["attn"], cfg, positions, env=env)
+    y, sk, sv = L.gqa_attention_full(h, lp["attn"], cfg, positions, env=env,
+                                     **kw)
     x = lm._add(x, y, env, sp)
     h = lm._norm(x, lp["ln_cross"], cfg)
     ck, cv = _cross_kv(L._whole(lp["cross"], env, ("wk", "wv")), enc_rows)
@@ -151,24 +163,30 @@ def _decoder_block_sharded(x, lp, cfg, positions, enc_rows, env, sp):
               for t in (ck, cv))
     y, _, _ = L.gqa_attention_full(h, lp["cross"], cfg, positions,
                                    causal=False, kv_override=(ck, cv),
-                                   env=env)
+                                   env=env, **kw)
     x = lm._add(x, y, env, sp)
     h = lm._norm(x, lp["ln2"], cfg)
-    return (lm._add(x, L.ffn_swiglu(h, lp["mlp"], env), env, sp),
-            (sk, sv, ck, cv))
+    x = lm._add(x, L.ffn_swiglu(h, lp["mlp"], env), env, sp)
+    return x, (None if opts is not None else (sk, sv, ck, cv))
 
 
-def _run_decoder_sharded(params, batch, cfg, env, max_len=None):
+def _run_decoder_sharded(params, batch, cfg, env, max_len=None, opts=None):
     """``_run_decoder`` on a mesh; the per-layer caches padded (self) and
-    laid out with their sequence over 'model'."""
+    laid out with their sequence over 'model' (with ``opts``, the training
+    route: (x, None))."""
     sp, bt = env.opts.get("sp", True), env.batch_axes
     enc_rows = L._local(_run_encoder_sharded(params, batch["frames"], cfg,
-                                             env), env, bt, None, None)
+                                             env, opts), env, bt, None, None)
     x = lm._res_cs(lm.embed_tokens(params, batch["tgt_tokens"], cfg, env),
                    env, sp)
     positions = _positions(x.shape[1], enc_rows.device)
     max_len = max_len or x.shape[1]
     seq = [bt, "model", None, None]
+    if opts is not None:
+        block = lm._maybe_remat(_decoder_block_sharded, opts)
+        for lp in lm._layers(params["dec_layers"]):
+            x, _ = block(x, lp, cfg, positions, enc_rows, env, sp, opts)
+        return x, None
     kvs = []
     for lp in lm._layers(params["dec_layers"]):
         x, (sk, sv, ck, cv) = _decoder_block_sharded(x, lp, cfg, positions,
@@ -193,16 +211,32 @@ def _run_decoder(params, batch, cfg, opts=None):
     return x, (None if opts is not None else kvs)
 
 
-def forward_train(params, batch, cfg, *, opts=None):
+def forward_train(params, batch, cfg, env=None, *, opts=None):
     """The training loss over ``tgt_labels`` (B, St): the encoder and the
     decoder on the training route, then ``lm.chunked_xent``; the twin of
     the reference's ``encdec.forward_train`` (``repro/models/encdec.py:
-    113``).  ``lm.forward_train`` sends an enc-dec config here."""
+    113``).  ``lm.forward_train`` sends an enc-dec config here; on a mesh
+    it runs ``train_loss_sharded`` and this sends it there."""
+    if L.on_mesh(env):
+        return lm.forward_train(params, batch, cfg, env, opts=opts)
     opts = lm.train_opts(opts)
     x, _ = _run_decoder(params, batch, cfg, opts)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm.chunked_xent(params, x, batch["tgt_labels"], cfg,
                            opts["loss_chunk"])
+
+
+def train_loss_sharded(params, batch, cfg, env, opts):
+    """The training loss on a mesh, before ``lm.forward_train`` seeds it:
+    the encoder and the decoder on the rank's shards (the cross K/V from
+    the rank's rows of the encoder output, gathered once, whole
+    sequence), then ``lm.chunked_xent`` on the mesh over ``tgt_labels``
+    (``embed`` / ``unembed`` split over 'model' where tp divides the
+    vocabulary, else whole)."""
+    x, _ = _run_decoder_sharded(params, batch, cfg, env, opts=opts)
+    x = lm._norm(x, params["final_norm"], cfg)
+    return lm.chunked_xent(params, x, batch["tgt_labels"], cfg,
+                           opts["loss_chunk"], env)
 
 
 def forward_logits(params, batch, cfg, env=None):

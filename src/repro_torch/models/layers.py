@@ -21,15 +21,17 @@ the kernels in ``repro_torch.kernels``.  Projections and the FFN stay
 
 On a mesh (an ``env`` whose ``ShardingEnv`` carries one) the attention
 (seamless's cross-attention and the paged decode included), FFN and MoE
-functions take and return DTensors.  At
-each of the reference's ``env.cs`` points the tensor is redistributed to
-the reference's spec, and each function body is the reference's
-``shard_map`` body (or what GSPMD makes of its einsums) written out on
-each rank's local shards: the kernels are called on local tensors only
-(a wrapper refuses a DTensor), and the collectives are the reference's
-``psum`` / ``all_gather`` / ``psum_scatter`` on the mesh axes' groups, or
-a DTensor redistribute where a layout changes.  With ``env`` None or
-``ShardingEnv(None)`` every function runs the one-device path unchanged.
+functions take and return DTensors, in serving and (``train=True``) in
+training.  At each of the reference's ``env.cs`` points the tensor is
+laid out as the reference's spec, and each function body is the
+reference's ``shard_map`` body (or what GSPMD makes of its einsums)
+written out on each rank's local shards: the kernels are called on local
+tensors only (a wrapper refuses a DTensor), and the collectives are the
+reference's ``psum`` / ``all_gather`` / ``psum_scatter`` on the mesh axes'
+groups (``models.sharding``, whose autograd functions carry their
+transposes, so the backward runs through the same bodies).  With ``env``
+None or ``ShardingEnv(None)`` every function runs the one-device path
+unchanged.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ from repro_torch.kernels.paged_attention.ops import (paged_append,
                                                      paged_decode,
                                                      paged_kv_gather)
 from repro_torch.models.sharding import (all_gather, axis_index,
-                                         contiguous_strides, psum, spec_of)
+                                         contiguous_strides, gathered_bmm,
+                                         psum, spec_of, whole)
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -318,10 +321,7 @@ def _q_params(p, env, heads, keys=("wq", "qnorm")):
 
 def _whole_tensor(t):
     """A DTensor whole on this rank (a gather where it is sharded)."""
-    from torch.distributed.tensor import Replicate
-    if all(isinstance(pl, Replicate) for pl in t.placements):
-        return t.to_local()
-    return t.full_tensor()
+    return whole(t)
 
 
 def _whole(p, env, keys):
@@ -403,13 +403,6 @@ def _attend(q, k, v, *, causal, train, attn_block, window=0):
                                    q_block=attn_block, kv_block=attn_block)
 
 
-def _refuse_on_mesh(what: str, env, train=False):
-    if on_mesh(env) and train:
-        raise NotImplementedError(
-            f"{what} on a mesh: training on a mesh is ROADMAP Queue 1 item "
-            f"3c")
-
-
 def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
                        kv_override=None, train: bool = False,
                        attn_block: int = 512, env=None):
@@ -420,17 +413,17 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
     q is roped at ``positions``, as the reference does; the projections it
     replaces are not computed.  Returns (y, k, v).
 
-    On a mesh (prefill only): each rank runs ``flash_prefill`` on its q
-    rows and heads (``_attn_q_spec``) over the kv heads they read
-    (``_kv_for_heads``); y is the out-projection, ``rs_out_proj``'s
-    reduce-scatter onto the sequence under ``opts["rs_matmul"]`` (heads
-    sharded), else a sum pending over 'model'; in f32 (``_out_proj``).
-    ``kv_override`` is then a pair of DTensors (any layout); the rank
-    takes its q rows of them."""
+    On a mesh: each rank runs ``flash_prefill`` (with ``train``,
+    ``chunked_attention_train``) on its q rows and heads
+    (``_attn_q_spec``) over the kv heads they read (``_kv_for_heads``);
+    y is the out-projection, ``rs_out_proj``'s reduce-scatter onto the
+    sequence under ``opts["rs_matmul"]`` (heads sharded), else a sum
+    pending over 'model'; in f32 (``_out_proj``).  ``kv_override`` is
+    then a pair of DTensors (any layout); the rank takes its q rows of
+    them."""
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit soft-capping is not "
                                   "ported: the flash kernel has no cap")
-    _refuse_on_mesh("gqa_attention_full", env, train)
     if on_mesh(env):
         B, S, _ = x.shape
         H, dh = cfg.n_heads, cfg.head_dim
@@ -445,8 +438,9 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
         kk, vv = _kv_for_heads(_local(k, env, qw[0], None, None, None),
                                _local(v, env, qw[0], None, None, None),
                                h0, Hl, H)
-        y = _global(flash_prefill(q, kk, vv, causal=causal,
-                                  window=cfg.sliding_window),
+        y = _global(_attend(q, kk, vv, causal=causal, train=train,
+                            attn_block=attn_block,
+                            window=cfg.sliding_window),
                     env, (B, S, H, dh), qw)
         if env.opts.get("rs_matmul") and env.heads_shardable(H):
             return rs_out_proj(y, p["wo"], env, "bshx,hxd->bsd"), k, v
@@ -702,11 +696,10 @@ def mla_attention_full(x, p, cfg, positions, *, train: bool = False,
     query-key width nope + rope and value width v_head_dim.  Returns (y,
     ckv (B, S, r), k_rope (B, S, rope)).
 
-    On a mesh (prefill only) each rank expands its heads of the latent
-    (``_attn_q_spec``: its rows, and its heads where they split over
-    'model') and runs the kernel on them; the latent and rope keys are
-    DTensors of the same rows, y a sum pending over 'model'."""
-    _refuse_on_mesh("mla_attention_full", env, train)
+    On a mesh each rank expands its heads of the latent (``_attn_q_spec``:
+    its rows, and its heads where they split over 'model') and attends
+    over them as above; the latent and rope keys are DTensors of the same
+    rows, y a sum pending over 'model'."""
     if on_mesh(env):
         B, S, _ = x.shape
         hw = _attn_q_spec(cfg, env)
@@ -715,7 +708,8 @@ def mla_attention_full(x, p, cfg, positions, *, train: bool = False,
               **_q_params(p, env, hw[2], ("wuq", "wukv"))}
         ckv, k_rope = _mla_latent(xl, lp, cfg, positions)
         q, k, v = _mla_heads(xl, lp, cfg, positions, ckv, k_rope)
-        y = _global(flash_prefill(q, k, v, causal=True), env,
+        y = _global(_attend(q, k, v, causal=True, train=train,
+                            attn_block=attn_block), env,
                     (B, S, cfg.n_heads, cfg.v_head_dim), hw)
         rows = [hw[0], None, None]
         return (_out_proj(y, p["wo"], env, hw, "bshv,hvd->bsd"),
@@ -922,10 +916,21 @@ def _moe_local(x2d, router_w, w1, w3, w2, *, n_experts: int, top_k: int,
     top_p, top_e = moe_router(x2d, router_w, top_k)
     keep, slot, s_t, s_p = _dispatch(top_p, top_e, e_start, e_local,
                                      capacity)
+    return _experts(x2d, s_p, w1, w3, w2, keep=keep, slot=slot, s_t=s_t,
+                    e_local=e_local, capacity=capacity).to(x2d.dtype)
+
+
+def _experts(x2d, s_p, w1, w3, w2, *, keep, slot, s_t, e_local: int,
+             capacity: int, bmm=None):
+    """The dispatched pairs through their experts' SwiGLU, combined by
+    their gates ``s_p``: (T, d) f32.  ``bmm(x, w, dim)`` multiplies by a
+    weight whose d_model is ``dim`` (``torch.bmm``, or on a mesh the
+    FSDP-gathered product)."""
+    bmm = bmm or (lambda a, w, dim: torch.bmm(a, w))
     buf = _buffer(x2d, keep, slot, s_t, e_local, capacity)
-    h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
-    out = torch.bmm(h, w2)                              # (e_local, C, d)
-    return _combine(out, keep, slot, s_t, s_p, x2d.shape[0]).to(x2d.dtype)
+    h = F.silu(bmm(buf, w1, 1)) * bmm(buf, w3, 1)
+    out = bmm(h, w2, 2)                                 # (e_local, C, d)
+    return _combine(out, keep, slot, s_t, s_p, x2d.shape[0])
 
 
 def _maybe_gather(w, axis_name, dim, env, full_dim):
@@ -965,14 +970,19 @@ def moe_ep(x, p, cfg, env, capacity_factor: float = 1.25):
     run on each rank's shards.
 
     Experts shard over 'model' when divisible, summed by a psum over
-    'model'; otherwise every shard computes all experts over a d_ff slice
-    (same psum).  Expert weights are FSDP-sharded over 'data' on d_model
-    and gathered inside the body.  Under ``serve_fullshard`` (EP, a 'data'
-    axis) the tokens are replicated, each rank dispatches its d_model
-    slice, and the partial-d contraction is summed over 'data', the
-    experts over 'model', then the d slices gathered.  Capacity: max(4,
-    ceil(t_local * k / E * capacity_factor)), t_local from the pruned
-    batch spec.  Returns a DTensor laid out as x's batch spec."""
+    'model'; otherwise every shard computes all experts over a d_ff
+    slice (same psum).  The ranks' gated sums are summed in f32 and
+    rounded once, as one device rounds a token's sum over its experts
+    once (the reference's body rounds each rank's sum to bf16 before its
+    psum).  Expert weights are FSDP-sharded over 'data' on d_model and
+    gathered inside the body, each one in its product and again in its
+    transpose (``sharding.gathered_bmm``).  Under ``serve_fullshard``
+    (EP, a 'data' axis) the tokens are replicated, each rank dispatches
+    its d_model slice, and the partial-d contraction is summed over
+    'data', the experts over 'model', then the d slices gathered.
+    Capacity: max(4, ceil(t_local * k / E * capacity_factor)), t_local
+    from the pruned batch spec.  Returns a DTensor laid out as x's batch
+    spec."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     if not on_mesh(env):
@@ -999,12 +1009,18 @@ def moe_ep(x, p, cfg, env, capacity_factor: float = 1.25):
     else:
         fsdp = env.fsdp_axis
         rw = _maybe_gather(rw, fsdp, 0, env, p["router"].shape[0])
-        w1 = _maybe_gather(w1, fsdp, 1, env, p["w1"].shape[1])
-        w3 = _maybe_gather(w3, fsdp, 1, env, p["w3"].shape[1])
-        w2 = _maybe_gather(w2, fsdp, 2, env, p["w2"].shape[2])
-        y2 = psum(_moe_local(x2, rw, w1, w3, w2, n_experts=E, top_k=k,
-                              e_start=e0, e_local=e_local,
-                              capacity=capacity), env, tp_ax)
+        top_p, top_e = moe_router(x2, rw, k)
+        keep, slot, s_t, s_p = _dispatch(top_p, top_e, e0, e_local,
+                                         capacity)
+        full = p["w1"].shape[1]
+
+        def bmm(a, w, dim):        # unless divisibility left w whole
+            split = fsdp if w.shape[dim] != full else None
+            return gathered_bmm(a, w, env, split, dim)
+
+        y2 = psum(_experts(x2, s_p, w1, w3, w2, keep=keep, slot=slot,
+                           s_t=s_t, e_local=e_local, capacity=capacity,
+                           bmm=bmm), env, tp_ax).to(xb.dtype)
     return _global(y2.reshape(xb.shape), env, x.shape, list(x_spec))
 
 
@@ -1040,7 +1056,7 @@ def _moe_dense_sharded(x, p, cfg, env):
     x_spec = env.spec(x.shape, [env.batch_axes, None, None])
     xb = _local(x, env, *x_spec)
     x2 = xb.reshape(-1, d)
-    top_p, top_e = moe_router(x2, p["router"].full_tensor(), cfg.top_k)
+    top_p, top_e = moe_router(x2, _whole_tensor(p["router"]), cfg.top_k)
     full = [None if a == env.fsdp_axis else a for a in w1_w]
     w1, w3 = (_local(p[n], env, *full) for n in ("w1", "w3"))
     w2 = _local(p["w2"], env, *[None if a == env.fsdp_axis else a

@@ -54,8 +54,12 @@ the layers run their shards (``layers``, ``rwkv``, ``mamba``,
 ``encdec``), the recurrent states come back laid out as ``cache_pspecs``
 puts them, and the logits as DTensors laid out as the reference's dry
 run fixes them (batch over the batch axes, vocab over 'model').
-``forward_train`` refuses a mesh, naming the ROADMAP item that ports
-training on one.
+``forward_train`` takes the same ``env``: on a mesh the loss is
+``chunked_xent`` on the ranks' shards (equal on every rank), each param
+leaf enters through ``sharding.copies`` and the loss is seeded with each
+rank's share, so ``loss.backward()`` leaves every gradient in its
+param's ``.grad`` laid out as the param (``sharding``'s docstring says
+how each collective transposes).
 """
 from __future__ import annotations
 
@@ -71,6 +75,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import rwkv as R
+from repro_torch.models import sharding as SH
 from repro_torch.models.sharding import (ShardingEnv, axis_index,
                                          contiguous_strides, param_pspecs,
                                          tree_map_with_path)
@@ -324,13 +329,15 @@ def _whole_layers(t):
     ``dec_layers`` FFN weights (L, d, f) for an expert stack and split
     their layer axis over 'model', which its layer scan gathers; here the
     axis is gathered over that mesh axis before the layers are split off
-    (any other leaf is returned as it is)."""
+    (any other leaf is returned as it is).  Under autograd the gather's
+    transpose is a reduce-scatter of the stacked gradient over that axis
+    (``sharding.all_gather``)."""
     from torch.distributed.tensor import Replicate
     pls = tuple(Replicate() if getattr(pl, "dim", None) == 0 else pl
                 for pl in t.placements)
     if pls == tuple(t.placements):
         return t
-    return t.redistribute(t.device_mesh, pls)
+    return SH.relayout(t, pls)
 
 
 def _select(t, i: int):
@@ -516,12 +523,16 @@ def _xent_chunk(x, labels, w):
     return ((lse - lab) * valid).sum(), valid.sum()
 
 
-def chunked_xent(params, x, labels, cfg, loss_chunk: int = 512):
+def chunked_xent(params, x, labels, cfg, loss_chunk: int = 512, env=None):
     """Chunked softmax cross-entropy, labels -100 masked: the twin of the
     reference's ``chunked_xent`` (``repro/models/lm.py:311``).  Each chunk
     of ``loss_chunk`` positions runs under ``torch.utils.checkpoint``, so
     its f32 (B, c, V) logits never live whole in the backward; the sums
-    are carried chunk by chunk, then divided by max(count, 1)."""
+    are carried chunk by chunk, then divided by max(count, 1).  On a mesh
+    (``_xent_sharded``) x is the normed stream as a DTensor and
+    ``labels`` (B, S) a tensor every rank holds whole (or a DTensor)."""
+    if L.on_mesh(env):
+        return _xent_sharded(params, x, labels, cfg, loss_chunk, env)
     S = x.shape[1]
     c = L._pick_block(S, loss_chunk)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
@@ -531,6 +542,79 @@ def chunked_xent(params, x, labels, cfg, loss_chunk: int = 512):
                              labels[:, i * c:(i + 1) * c], w,
                              use_reentrant=False)
         tot, cnt = tot + part, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _xent_parts(x, labels, w, v0: int):
+    """One chunk's rank-local parts over the vocab rows [v0, v0 + V') that
+    ``w`` (d, V') holds: each position's f32 log-sum-exp over them, its
+    label's logit where the label falls among them (else 0), and the
+    valid mask (labels >= 0) as f32."""
+    logits = torch.einsum("bsd,dv->bsv", x.float(), w.float())
+    rel = labels.long() - v0
+    hit = (rel >= 0) & (rel < w.shape[1])
+    lab = logits.gather(-1, rel.clamp(0, w.shape[1] - 1)[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1), torch.where(hit, lab, 0.0),
+            (labels >= 0).float())
+
+
+def _xent_sharded(params, x, labels, cfg, loss_chunk, env):
+    """``chunked_xent`` on a mesh.  Where the vocabulary splits over
+    'model' (the tied ``embed`` [tp, None], an untied ``unembed`` [None,
+    tp], pruned where tp does not divide it), each rank takes its rows
+    with the whole sequence and its vocab slice: per chunk, its log-sum-
+    exps are combined over 'model' (the largest, detached, then a psum of
+    the exponentials) and the label's logit comes from the rank that
+    holds it (a psum of the others' zeros).  Otherwise each rank takes
+    its positions as the stream lays them out, over the whole vocabulary.
+    The stream is taken in f32 (so the ranks' partial cotangents of it
+    meet unrounded, ``_even``), and each chunk's logits run under
+    ``torch.utils.checkpoint``, with no collective inside.  The sums and
+    the count are then summed over every mesh axis that splits the
+    positions: every rank holds the same f32 loss, under autograd."""
+    bt = env.batch_axes
+    tied = cfg.tie_embeddings
+    w = params["embed"] if tied else params["unembed"]
+    split = ["model", None] if tied else [None, "model"]
+    vocab = env.spec(w.shape, split)[0 if tied else 1]
+    x = L.rowwise(lambda t: t.float(), x)
+    if vocab is not None:
+        rows = env.spec(x.shape, [bt, None, None])
+        xl = _even(env.cs(x, *rows)).to_local()
+        wl = L._local(w, env, *split)
+        wl = wl.T if tied else wl
+        v0 = axis_index(env, vocab) * wl.shape[1]
+    else:
+        rows = L.sharding_spec(x, env)
+        xl = _even(x).to_local()
+        wl = L._whole_tensor(w)
+        wl, v0 = (wl.T if tied else wl), 0
+    lab = (L._local(labels, env, *rows[:2]) if _is_dtensor(labels)
+           else L.shard_of(labels, env, list(rows[:2])))
+    c = L._pick_block(xl.shape[1], loss_chunk)
+    tot = cnt = torch.zeros((), dtype=F32, device=xl.device)
+    for i in range(xl.shape[1] // c):
+        lse, hit, valid = checkpoint(_xent_parts, xl[:, i * c:(i + 1) * c],
+                                     lab[:, i * c:(i + 1) * c], wl, v0,
+                                     use_reentrant=False)
+        if vocab is not None:
+            top = SH.pmax(lse, env, "model")
+            lse = top + torch.log(SH.psum(torch.exp(lse - top), env,
+                                          "model"))
+            hit = SH.psum(hit, env, "model")
+        tot = tot + ((lse - hit) * valid).sum()
+        cnt = cnt + valid.sum()
+    return _xent_mean(tot, cnt, env,
+                      [a for e in rows[:2] for a in SH._axes(e)])
+
+
+def _xent_mean(tot, cnt, env, axes):
+    """The mean loss from the ranks' sums and counts over the positions
+    they hold: both summed over the mesh ``axes`` that split the
+    positions, then divided (ranks hold different counts of valid
+    labels, so per-rank means would weigh their positions unequally)."""
+    for axis in axes:
+        tot, cnt = SH.psum(tot, env, axis), SH.psum(cnt, env, axis)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -551,6 +635,14 @@ def train_opts(opts=None) -> Dict[str, Any]:
         raise NotImplementedError(f"remat_policy {out['remat_policy']!r}: "
                                   f"only whole-layer remat is ported")
     return out
+
+
+def mesh_train_opts(env) -> Dict[str, Any]:
+    """``TRAIN_OPTS``' keys as ``env.opts`` sets them: on a mesh the
+    training options come from the env, as the reference's do (its other
+    keys, ``sp``, ``fsdp``, ``moe_impl``, ``rs_matmul``, are read where
+    the layers run)."""
+    return train_opts({k: env.opts[k] for k in TRAIN_OPTS if k in env.opts})
 
 
 def _maybe_remat(fn, opts):
@@ -587,7 +679,24 @@ def _mlp(h, p, cfg, env=None):
 
 
 def _norm(x, w, cfg):
-    return L.rowwise(L.rms_norm, x, w, cfg.norm_eps)
+    """The rms norm of the stream on a mesh (a DTensor), its cotangent's
+    shares evened over the axes the stream is replicated over
+    (``_even``)."""
+    return _even(L.rowwise(L.rms_norm, x, w, cfg.norm_eps))
+
+
+def _even(h):
+    """The DTensor h as is; under autograd its cotangent's shares evened
+    over the mesh axes it is replicated over (``sharding.even``: 'model'
+    for the stream without ``sp``), so the ranks' partial sums meet
+    where h is used, as one device sums them."""
+    if not (torch.is_grad_enabled() and h.requires_grad):
+        return h
+    axes = [a for a, pl in zip(h.device_mesh.mesh_dim_names, h.placements)
+            if pl.is_replicate()]
+    env = ShardingEnv(h.device_mesh)
+    return L._global(SH.even(h.to_local(), env, axes), env, h.shape,
+                     list(L.sharding_spec(h, env)))
 
 
 def _res_cs(x, env, sp: bool):
@@ -643,18 +752,21 @@ def _uniform_block(x, lp, cfg, positions, opts=None):
     return L.pin_bf16(x + L.pin_bf16(y)), (c1, c2)
 
 
-def _uniform_block_sharded(x, lp, cfg, positions, env, max_len):
+def _uniform_block_sharded(x, lp, cfg, positions, env, max_len, opts=None):
     """``_uniform_block`` on a mesh, at the reference's constraint points;
     the cache entries padded to ``max_len`` and laid out with their
-    sequence over 'model'."""
+    sequence over 'model' (with ``opts``, the training route: none)."""
     sp = env.opts.get("sp", True)
     h = _norm(x, lp["ln1"], cfg)
     attn = L.mla_attention_full if cfg.use_mla else L.gqa_attention_full
-    y, c1, c2 = attn(h, lp["attn"], cfg, positions, env=env)
+    y, c1, c2 = attn(h, lp["attn"], cfg, positions, env=env,
+                     **_attn_kw(opts))
     # constrain the contraction OUTPUT (the pending sum lands as a
     # reduce-scatter into the sequence-parallel layout), then the sum
     x = _add(x, y, env, sp)
     x = _add(x, _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg, env), env, sp)
+    if opts is not None:
+        return x, (None, None)
     bt = env.batch_axes
     return x, tuple(_pad_seq_local(c, max_len or c.shape[1], env,
                                    [bt, "model"] + [None] * (c.dim() - 2))
@@ -665,11 +777,11 @@ def _run_uniform(params, x, cfg, positions, opts=None, env=None,
                  max_len=None):
     """Returns (x, the stacked cache entries), or (x, None) in training."""
     block = _maybe_remat(_uniform_block, opts)
+    sharded = _maybe_remat(_uniform_block_sharded, opts)
     c1s, c2s = [], []
     for lp in _layers(params["layers"]):
         if L.on_mesh(env):
-            x, (c1, c2) = _uniform_block_sharded(x, lp, cfg, positions, env,
-                                                 max_len)
+            x, (c1, c2) = sharded(x, lp, cfg, positions, env, max_len, opts)
         else:
             x, (c1, c2) = block(x, lp, cfg, positions, opts)
         c1s.append(c1)
@@ -776,15 +888,17 @@ def _jamba_superblock(x, sb, cfg, positions, *, states=None, collect=False,
 
 
 def _jamba_superblock_sharded(x, sb, cfg, positions, env, *, states=None,
-                              pos=None, max_len=None):
+                              pos=None, max_len=None, opts=None):
     """``_jamba_superblock`` on a mesh, the stream at the reference's
     ``_res_cs`` point after every slot (its sequence over 'model' under
     ``sp`` in a prefill, never in a decode).  A prefill returns its k, v
     padded to ``max_len`` and laid out with their sequence over 'model';
     the mamba slots' states come back laid out as ``cache_pspecs`` puts
-    them (channels over 'model')."""
+    them (channels over 'model').  With ``opts`` (the training route) it
+    returns (x, None, None)."""
     per = cfg.attn_period
     sp = env.opts.get("sp", True) and states is None
+    train = opts is not None
     mi = ji = fi = 0
     conv, ssm = [], []
     kv_out = None
@@ -794,7 +908,10 @@ def _jamba_superblock_sharded(x, sb, cfg, positions, env, *, states=None,
     for slot in range(per):
         if slot == per // 2:
             h = _norm(x, sb["attn_ln"], cfg)
-            if states is None:
+            if train:
+                y, _, _ = L.gqa_attention_full(h, sb["attn"], cfg, positions,
+                                               env=env, **_attn_kw(opts))
+            elif states is None:
                 y, k, v = L.gqa_attention_full(h, sb["attn"], cfg,
                                                positions, env=env)
                 kv_out = tuple(_pad_seq_local(
@@ -805,6 +922,10 @@ def _jamba_superblock_sharded(x, sb, cfg, positions, env, *, states=None,
                     h, sb["attn"], cfg, states["k"], states["v"], pos,
                     env=env)
                 kv_out = (kc, vc)
+        elif train:
+            y = M.mamba_layer(_norm(x, mamba_ln[mi], cfg), mamba[mi], cfg,
+                              env, train=True)
+            mi += 1
         else:
             h = _norm(x, mamba_ln[mi], cfg)
             y, conv_s, ssm_s = M.mamba_layer(
@@ -824,6 +945,8 @@ def _jamba_superblock_sharded(x, sb, cfg, positions, env, *, states=None,
             h, lp = _norm(x, ffn_ln[fi], cfg), ffn[fi]
             fi += 1
         x = _add(x, _mlp(h, lp, cfg, env), env, sp)
+    if train:
+        return x, None, None
     return x, kv_out, {"conv": _stack(conv), "ssm": _stack(ssm)}
 
 
@@ -832,11 +955,12 @@ def _run_jamba(params, x, cfg, positions, *, collect=False, opts=None,
     """Returns (x, None) or, with ``collect``, (x, ((k, v), {conv, ssm}))
     stacked over superblocks."""
     block = _maybe_remat(_jamba_superblock, opts)
+    sharded = _maybe_remat(_jamba_superblock_sharded, opts)
     ks, vs, convs, ssms = [], [], [], []
     for sb in _layers(params["superblocks"]):
         if L.on_mesh(env):
-            x, kv, st = _jamba_superblock_sharded(x, sb, cfg, positions, env,
-                                                  max_len=max_len)
+            x, kv, st = sharded(x, sb, cfg, positions, env, max_len=max_len,
+                                opts=opts)
         else:
             x, kv, st = block(x, sb, cfg, positions, collect=collect,
                               opts=opts)
@@ -868,11 +992,18 @@ def _rwkv_block(x, lp, cfg, *, collect=False, opts=None):
     return x, ((wkv, s_tm, s_cm) if collect else None)
 
 
-def _rwkv_block_sharded(x, lp, cfg, env, sp, st=None):
+def _rwkv_block_sharded(x, lp, cfg, env, sp, st=None, train=False):
     """``_rwkv_block`` (``st`` None) or ``_rwkv_decode_block`` (``st`` the
     layer's (wkv, shift_tm, shift_cm)) on a mesh: each mix's output added
     to the stream (``_add``).  Returns (x, (wkv, shift_tm, shift_cm)) laid
-    out as ``cache_pspecs`` puts them."""
+    out as ``cache_pspecs`` puts them; with ``train``, the training route,
+    (x, None)."""
+    if train:
+        y = R.rwkv6_time_mix(_norm(x, lp["ln1"], cfg), lp["tm"], cfg, env,
+                             train=True)
+        x = _add(x, y, env, sp)
+        y = R.rwkv6_channel_mix(_norm(x, lp["ln2"], cfg), lp["cm"], cfg, env)
+        return _add(x, y, env, sp), None
     wkv, s_tm, s_cm = st or (None, None, None)
     y, s_tm2, wkv2 = R.rwkv6_time_mix(_norm(x, lp["ln1"], cfg), lp["tm"],
                                       cfg, env, shift_state=s_tm,
@@ -887,11 +1018,12 @@ def _run_rwkv(params, x, cfg, *, collect=False, opts=None, env=None):
     """Returns (x, None) or, with ``collect``, (x, (wkv, shift_tm,
     shift_cm)) stacked over layers."""
     block = _maybe_remat(_rwkv_block, opts)
+    sharded = _maybe_remat(_rwkv_block_sharded, opts)
     sts = []
     for lp in _layers(params["layers"]):
         if L.on_mesh(env):
-            x, st = _rwkv_block_sharded(x, lp, cfg, env,
-                                        env.opts.get("sp", True))
+            x, st = sharded(x, lp, cfg, env, env.opts.get("sp", True),
+                            None, opts is not None)
         else:
             x, st = block(x, lp, cfg, collect=collect, opts=opts)
         sts.append(st)
@@ -972,36 +1104,22 @@ def _last(x, env):
     return L._global(xl, env, (x.shape[0], 1, x.shape[2]), [bt, None, None])
 
 
-# what a mesh does not run yet, by entry point: its ROADMAP Queue 1 item
-MESH_ITEMS = {"forward_train": "3c"}
-
-
-def check_mesh(cfg: ModelConfig, env, entry: str) -> bool:
-    """True where ``env`` carries a mesh that ``entry`` runs on; raises
-    ``NotImplementedError`` naming the ROADMAP item for a mesh it does not
-    (training, every family).  Nothing falls back to an unsharded run."""
-    if not L.on_mesh(env):
-        return False
-    item = MESH_ITEMS.get(entry)
-    if item:
-        raise NotImplementedError(
-            f"{entry} on a mesh for {cfg.name} ({cfg.family}): the port "
-            f"serves every family on a mesh but trains on one device; "
-            f"training on a mesh is ROADMAP Queue 1 item {item}")
-    return True
-
-
 def forward_train(params, batch, cfg: ModelConfig, env=None, *,
                   opts=None):
     """The training loss: the mean cross-entropy of ``batch["labels"]``
     (B, S) over the causal forward, a scalar f32 tensor under autograd
     (enc-dec: ``frames``, ``tgt_tokens``, ``tgt_labels``).  The twin of the
-    reference's ``forward_train`` (``repro/models/lm.py:595``) with no
-    mesh (a mesh raises: ROADMAP Queue 1 item 3c); ``opts`` takes
-    ``TRAIN_OPTS``' keys (``attn_block``, ``loss_chunk``, ``remat``).  No
-    kernel is launched: the kernels have no backward."""
+    reference's ``forward_train`` (``repro/models/lm.py:595``).  On one
+    device ``opts`` takes ``TRAIN_OPTS``' keys (``attn_block``,
+    ``loss_chunk``, ``remat``).  On a mesh (``_train_sharded``) the
+    options come from ``env.opts``, as the reference's do, and ``opts``
+    must be None.  No kernel is launched: the kernels have no backward."""
     check_family(cfg)
-    check_mesh(cfg, env, "forward_train")
+    if L.on_mesh(env):
+        if opts is not None:
+            raise ValueError("forward_train on a mesh takes its options "
+                             "from env.opts, not opts=")
+        return _train_sharded(params, batch, cfg, env)
     opts = train_opts(opts)
     if cfg.enc_dec:
         from repro_torch.models import encdec
@@ -1017,13 +1135,50 @@ def forward_train(params, batch, cfg: ModelConfig, env=None, *,
     return chunked_xent(params, x, labels, cfg, opts["loss_chunk"])
 
 
+def _train_sharded(params, batch, cfg, env):
+    """``forward_train`` on a mesh: params DTensors laid out by
+    ``param_shardings`` (each leaf through ``sharding.copies``, so its
+    gradient is summed over the axes it is replicated over), the batch
+    tensors every rank holds whole (or DTensors), the layers on each
+    rank's shards at the reference's constraint points (``env.opts``:
+    ``sp``, ``fsdp``, ``moe_impl``, ``rs_matmul``, ``remat``,
+    ``attn_block``, ``loss_chunk``), the loss ``chunked_xent`` on the
+    mesh, equal on every rank and seeded with its share
+    (``sharding.rank_share``).  The gradients land in the params'
+    ``.grad`` as DTensors laid out as the params."""
+    opts = mesh_train_opts(env)
+    params = SH.copies(params)
+    if cfg.enc_dec:
+        from repro_torch.models import encdec
+        loss = encdec.train_loss_sharded(params, batch, cfg, env, opts)
+        return SH.rank_share(loss, env)
+    x, positions = _assemble_sharded(params, batch, cfg, env)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        if _is_dtensor(labels):
+            labels = SH.whole(labels)
+        P = batch["patches"].shape[1]
+        labels = torch.cat([torch.full((labels.shape[0], P), -100,
+                                       dtype=labels.dtype,
+                                       device=labels.device), labels], dim=1)
+    if cfg.family == "ssm":
+        x, _ = _run_rwkv(params, x, cfg, opts=opts, env=env)
+    elif cfg.family == "hybrid":
+        x, _ = _run_jamba(params, x, cfg, positions, opts=opts, env=env)
+    else:
+        x, _ = _run_uniform(params, x, cfg, positions, opts, env)
+    x = _norm(x, params["final_norm"], cfg)
+    return SH.rank_share(chunked_xent(params, x, labels, cfg,
+                                      opts["loss_chunk"], env), env)
+
+
 def forward_logits(params, batch, cfg: ModelConfig, env=None):
     """Full-sequence forward.  batch["tokens"]: (B, S) integer ids, after
     vlm's ``batch["patches"]`` (B, P, d_model).  Returns logits (B, P + S,
     V) f32 (P = 0 outside vlm); on a mesh a DTensor laid out as
     ``logits_wants``."""
     check_family(cfg)
-    if check_mesh(cfg, env, "forward_logits"):
+    if L.on_mesh(env):
         if cfg.enc_dec:
             from repro_torch.models import encdec
             return encdec.forward_logits(params, batch, cfg, env)
@@ -1146,7 +1301,7 @@ def prefill(params, batch, cfg: ModelConfig, env=None,
     On a mesh: the last logits laid out as ``logits_wants``, the cache
     leaves as ``cache_pspecs(cfg, env, B, max_len)`` lays them out."""
     check_family(cfg)
-    if check_mesh(cfg, env, "prefill") and not cfg.enc_dec:
+    if L.on_mesh(env) and not cfg.enc_dec:
         return _prefill_sharded(params, batch, cfg, env, max_len)
     if cfg.enc_dec:
         from repro_torch.models import encdec
@@ -1233,7 +1388,7 @@ def decode_step(params, tokens, cache, pos, cfg: ModelConfig, env=None):
     logits are laid out as ``logits_wants`` (batch replicated under
     ``serve_fullshard``)."""
     check_family(cfg)
-    if check_mesh(cfg, env, "decode_step"):
+    if L.on_mesh(env):
         if cfg.enc_dec:
             from repro_torch.models import encdec
             return encdec.decode_step(params, tokens, cache, pos, cfg, env)
@@ -1345,7 +1500,6 @@ def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
     The idle rows' sentinel ``num_blocks`` stays out of range on every
     replica (no layout splits the block axis)."""
     check_family(cfg)
-    check_mesh(cfg, env, "decode_step_paged")
     if cfg.family == "ssm" or cfg.attn_period or cfg.use_mla or cfg.enc_dec:
         raise ValueError("paged decode covers the uniform GQA-cache "
                          "families")

@@ -10,20 +10,22 @@ The causal depthwise conv stays plain PyTorch (an f32 sum of d_conv
 shifted products, cast back).
 
 On a mesh (an ``env`` whose ``ShardingEnv`` carries one) ``mamba_layer``
-takes and returns DTensors.  Each rank takes its batch rows of the stream
-with the whole sequence (the conv and the scan need every earlier token;
-under ``sp`` the stream arrives with its sequence over 'model') and runs
-on its ``d_inner / tp`` channels, the reference's ``cs(xr, batch, None,
-"model")``: ``in_proj`` (``_COL``) gives each rank a column block of the
-product [xr | z], which does not line up with the split at ``d_inner``,
-so the blocks are gathered over 'model' and each rank takes its channels
-of xr and of z; the conv, ``dt``, ``mamba_scan`` and the gate run on
-those channels with the rank's slices of ``conv_w``, ``conv_b``,
-``dt_w``, ``dt_b``, ``A_log``, ``D`` and of the carried ``conv`` /
-``ssm`` states.  ``x_proj``'s contraction runs over the split channels:
-its f32 partial products are summed over 'model' and rounded once, so
-``dt | B | C`` are whole on every rank.  ``out_proj`` (``_ROW``) is an
-f32 sum still pending over 'model'.
+takes and returns DTensors, in serving and in training (``train=True``:
+the scan through ``_ssm_scan_train`` on the rank's channels).  Each rank
+takes its batch rows of the stream with the whole sequence (the conv and
+the scan need every earlier token; under ``sp`` the stream arrives with
+its sequence over 'model') and runs on its ``d_inner / tp`` channels,
+the reference's ``cs(xr, batch, None, "model")``: ``in_proj`` (``_COL``)
+gives each rank a column block of the product [xr | z], which does not
+line up with the split at ``d_inner``, so the blocks are gathered over
+'model' and each rank takes its channels of xr and of z; the conv,
+``dt``, ``mamba_scan`` and the gate run on those channels with the
+rank's slices of ``conv_w``, ``conv_b``, ``dt_w``, ``dt_b``, ``A_log``,
+``D`` and of the carried ``conv`` / ``ssm`` states.  ``x_proj``'s
+contraction runs over the split channels: its f32 partial products are
+summed over 'model' and rounded once, so ``dt | B | C`` are whole on
+every rank.  ``out_proj`` (``_ROW``) is an f32 sum still pending over
+'model'.
 """
 from __future__ import annotations
 
@@ -91,7 +93,7 @@ def mamba_layer(x, p, cfg, env=None, *, conv_state=None, ssm_state=None,
     """
     if L.on_mesh(env):
         return _mamba_sharded(x, p, cfg, env, conv_state, ssm_state,
-                              return_state)
+                              return_state, train)
     B, S, d = x.shape
     di = cfg.mamba_d_inner
     ds = cfg.mamba_d_state
@@ -134,10 +136,12 @@ def mamba_layer(x, p, cfg, env=None, *, conv_state=None, ssm_state=None,
     return out
 
 
-def _mamba_sharded(x, p, cfg, env, conv_state, ssm_state, return_state):
+def _mamba_sharded(x, p, cfg, env, conv_state, ssm_state, return_state,
+                   train=False):
     """``mamba_layer`` on a mesh: the rank's rows (the whole sequence) and
     channels; the output an f32 sum pending over 'model' where the
-    channels split."""
+    channels split.  With ``train`` the scan runs ``_ssm_scan_train`` on
+    those channels."""
     B, S, d = x.shape
     di, ds, dtr = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.dt_rank
     if ssm_state is not None:
@@ -176,7 +180,8 @@ def _mamba_sharded(x, p, cfg, env, conv_state, ssm_state, return_state):
         y, h_T = mamba_scan(xc, dt, Bc, Cc, A, D, h0)
         y = y.to(x.dtype)
     else:
-        y, h_T = _ssm_scan(xc, dt, Bc, Cc, A, D)
+        y, h_T = (_ssm_scan_train if train else _ssm_scan)(xc, dt, Bc, Cc,
+                                                           A, D)
     y = (y.float() * F.silu(z.float())).to(x.dtype)
     out = L._global(y.float() @ L._local(p["out_proj"], env, ch,
                                          None).float(),

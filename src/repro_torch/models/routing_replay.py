@@ -31,7 +31,10 @@ class SameRouting:
     def record(self):
         def rec(x2d, w, k):
             p, e = self.router(x2d, w, k)
-            self.calls.append((torch.softmax((x2d @ w).float(), -1), e))
+            # detached: under autograd the record would keep the run's
+            # graph, so every tensor and param behind it, alive
+            self.calls.append((torch.softmax((x2d @ w).float(), -1)
+                               .detach(), e))
             return p, e
         self._set(L, "moe_router", rec)
 

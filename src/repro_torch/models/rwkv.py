@@ -9,8 +9,10 @@ rounding points are kept: each ddlerp mix is rounded to the activations' type, t
 output goes through ``group_norm_heads`` to bf16.
 
 On a mesh (an ``env`` whose ``ShardingEnv`` carries one) both mixes take
-and return DTensors.  Each rank takes its batch rows of the stream with
-the whole sequence before the token shift (under ``sp`` the stream
+and return DTensors, in serving and in training (``train=True``: the
+recurrence through ``_wkv6_scan`` on the rank's heads).  Each rank takes
+its batch rows of the stream with the whole sequence before the token
+shift (under ``sp`` the stream
 arrives with its sequence over 'model': a shift on the shard would lose
 the previous token at each shard boundary), and its heads of ``Wr`` /
 ``Wk`` / ``Wv`` / ``Wg`` (``_COL``: whole heads where ``H % tp == 0``, as
@@ -87,7 +89,7 @@ def rwkv6_time_mix(x, p, cfg, env=None, *, shift_state=None,
                    train: bool = False):
     if L.on_mesh(env):
         return _time_mix_sharded(x, p, cfg, env, shift_state, wkv_state,
-                                 return_state)
+                                 return_state, train)
     B, S, d = x.shape
     H = cfg.rwkv_n_heads
     hs = cfg.rwkv_head_size
@@ -128,9 +130,11 @@ def _rows(x, state, env):
     return env.spec(x.shape, [env.batch_axes, None, None])[0]
 
 
-def _time_mix_sharded(x, p, cfg, env, shift_state, wkv_state, return_state):
+def _time_mix_sharded(x, p, cfg, env, shift_state, wkv_state, return_state,
+                      train=False):
     """``rwkv6_time_mix`` on a mesh: the rank's rows (the whole sequence)
-    and heads; y an f32 sum pending over 'model' where the heads split."""
+    and heads; y an f32 sum pending over 'model' where the heads split.
+    With ``train`` the recurrence runs ``_wkv6_scan`` on those heads."""
     B, S, d = x.shape
     H, hs = cfg.rwkv_n_heads, cfg.rwkv_head_size
     rows = _rows(x, wkv_state, env)
@@ -155,7 +159,8 @@ def _time_mix_sharded(x, p, cfg, env, shift_state, wkv_state, return_state):
     w = torch.exp(-torch.exp(dec)).reshape(Bl, S, Hl, hs)
     state = (None if wkv_state is None
              else L._local(wkv_state, env, rows, heads, None, None))
-    out, s_T = wkv6(r, k, v, w, L._local(p["faaaa"], env, heads,
+    scan = _wkv6_scan if train else wkv6
+    out, s_T = scan(r, k, v, w, L._local(p["faaaa"], env, heads,
                                          None).float(), state)
     out = group_norm_heads(out.reshape(Bl, S, Hl * hs), pw["ln_x"][ch], Hl,
                            cfg.norm_eps)

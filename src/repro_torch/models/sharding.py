@@ -26,6 +26,43 @@ raises where DTensor cannot give it).
 ``ShardingEnv(mesh=None)`` makes every constraint a no-op, so the same
 model code runs on one device.  DTensor is imported where a mesh is used:
 importing it adds about a second to importing the model code.
+
+Gradients on a mesh.  Every rank differentiates its own program on its
+local tensors: ``DTensor.from_local`` / ``to_local`` only wrap and unwrap
+a shard, and every value that crosses ranks goes through a collective of
+this module (``psum``, ``all_gather``, the gathers and cuts of
+``ShardingEnv.cs``), an autograd function whose backward is its transpose
+over the ranks.  The convention is that of the sum of the ranks'
+programs: the objective is the sum over ranks of each rank's seeded
+cotangent, each rank's copy of a value is a variable of its own, and a
+collective transposes as a linear map of all the ranks' tensors:
+
+  * a psum transposes to a psum;
+  * an all-gather over an axis to a reduce-scatter over it (psum, then
+    the rank's block), and a psum-then-cut to a psum of the padded
+    cotangent, the values an all-gather gives;
+  * a cut of a rank's own copy (``Replicate`` -> ``Shard``) is local: its
+    transpose pads with zeros, with no collective;
+  * a param leaf is the same value copied to every rank along the mesh
+    axes it is replicated over: ``copies`` wraps each leaf so that its
+    gradient is summed over those axes, and over no other;
+  * the loss, equal on every rank, is seeded with each rank's share
+    1/n of the cotangent (``rank_share``), so the ranks' seeds add up to
+    the one loss's.
+
+A computation that the ranks along an axis duplicate (``wk`` / ``wv`` on
+a stream whole over 'model') is then counted once per rank at 1/n of the
+cotangent each, and summed once where its inputs were copied; a value
+used on the rank's shard of the sequence or the batch gets the rank's
+share only, and the same sum adds the others'.  Backward sums run in f32
+and round once.  ``even`` evens the ranks' shares of a replicated
+value's cotangent: the sum is the same, but bf16 rounds it once, as on
+one device (without it the CPU tests' bf16 ``sp=False`` cases of llava,
+mixtral and deepseek-v2 read 2.07-2.36e-2 against their 2e-2 limit).  An FSDP-gathered weight is not kept
+from its product to its transpose (``gathered_bmm`` gathers it again
+there).  The ranks run their backward in the same order of
+collectives, each on its own thread (a threaded world's rank threads take
+the calling-thread backward, ``launch.mesh.threaded_world``).
 """
 from __future__ import annotations
 
@@ -33,6 +70,9 @@ import itertools
 import math
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
 
 AxisEntry = Union[None, str, Tuple[str, ...]]
 
@@ -279,11 +319,7 @@ class ShardingEnv:
 
     def cs(self, x, *wants: AxisEntry):
         """Redistribute a DTensor to the divisibility-checked spec (the
-        reference's ``with_sharding_constraint``).  A change that only
-        sums, gathers or cuts whole dims (``_direct``) runs as those
-        collectives on x's shard, past DTensor's ``redistribute``: the
-        sharded decode is host-bound, and that machinery costs several
-        times the collective."""
+        reference's ``with_sharding_constraint``), by ``relayout``."""
         if self.mesh is None:
             return x
         from torch.distributed.tensor import DTensor
@@ -293,12 +329,7 @@ class ShardingEnv:
         target = self.named(x.shape, list(wants)).placements
         if tuple(x.placements) == target:
             return x
-        local = _direct(x, self, target)
-        if local is None:
-            return x.redistribute(self.mesh, target)
-        return DTensor.from_local(local, self.mesh, target, run_check=False,
-                                  shape=x.shape,
-                                  stride=contiguous_strides(x.shape))
+        return relayout(x, target)
 
     # -- family decisions --------------------------------------------
     def heads_shardable(self, n_heads: int) -> bool:
@@ -319,66 +350,309 @@ def axis_index(env: ShardingEnv, entry: AxisEntry) -> int:
     return i
 
 
-def psum(t, env: ShardingEnv, axis: Optional[str]):
-    """``lax.psum`` of a rank's tensor over mesh axis ``axis`` (a new
-    tensor)."""
-    import torch
-    import torch.distributed as dist
-    if axis is None or env.axis_sizes.get(axis, 1) == 1:
-        return t
-    out = t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=env.mesh.get_group(axis))
-    return out
+def _group(mesh, axis: str):
+    return mesh.get_group(axis)
 
 
-def all_gather(t, env: ShardingEnv, axis: str, dim: int):
-    """``lax.all_gather(t, axis, axis=dim, tiled=True)``: the ranks'
-    blocks along ``dim`` in the axis' order."""
-    import torch.distributed as dist
-    n = env.axis_sizes.get(axis, 1)
-    if n == 1:
-        return t
+def _f32_psum(g, group):
+    """The sum over ``group`` of every rank's ``g``, taken in f32 and
+    rounded once to g's type: the backward's sums."""
+    out = g.to(torch.float32, memory_format=torch.contiguous_format,
+               copy=True)
+    dist.all_reduce(out, group=group)
+    return out.to(g.dtype)
+
+
+def _gather(t, group, n, dim):
+    """The ranks' blocks of ``t`` along ``dim`` (a new tensor)."""
     x = t.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
-    gather(out, x, group=env.mesh.get_group(axis))
+    gather(out, x, group=group)
     return out.movedim(0, dim)
 
 
-def _direct(x, env: ShardingEnv, target):
-    """x's shard laid out as ``target``, where each mesh dim that changes
-    goes from a partial sum to Replicate or Shard(d) (a psum, then a cut),
-    from Shard(d) to Replicate (an all-gather over its axis) or from
-    Replicate to Shard(d) (a cut of this rank's block), and no tensor dim
-    is split by two mesh dims before or after: the sums first, then the
-    gathers, then the cuts.  None for any other change (a strided shard,
-    a dim over two axes): DTensor's redistribute takes those."""
+def _reduce_scatter(g, group, dim):
+    """This rank's block along ``dim`` of the sum over ``group`` of every
+    rank's ``g``, summed in f32 and rounded once to g's type."""
+    n = dist.get_world_size(group)
+    x = g.movedim(dim, 0).to(torch.float32,
+                             memory_format=torch.contiguous_format)
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    scatter = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    scatter(out, x, group=group)
+    return out.to(g.dtype).movedim(0, dim)
+
+
+class _AllReduce(torch.autograd.Function):
+    """psum; transpose: psum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _f32_psum(g, ctx.group), None
+
+class _AllGather(torch.autograd.Function):
+    """Tiled all-gather along ``dim``; transpose: reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(t, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None, None
+
+class _GatheredBmm(torch.autograd.Function):
+    """``bmm(x, w gathered along dim)``, the gathered weight kept for
+    neither pass: the transpose gathers it again, and reduce-scatters
+    its cotangent one row of the batch dim at a time."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, n, dim):
+        ctx.save_for_backward(x, w)
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return torch.bmm(x, _gather(w, group, n, dim))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        whole = _gather(w, ctx.group, ctx.n, ctx.dim)
+        gx = torch.bmm(g, whole.transpose(1, 2))
+        del whole
+        gw = torch.bmm(x.transpose(1, 2), g)
+        parts = [_reduce_scatter(gw[e:e + 1], ctx.group, ctx.dim)
+                 for e in range(gw.shape[0])]
+        return gx, torch.cat(parts), None, None, None
+
+class _Copies(torch.autograd.Function):
+    """Identity; transpose: the sum over ``groups`` (a param's
+    copies)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.groups:
+            return g, None
+        out = g.float()
+        for group in ctx.groups:
+            out = _f32_psum(out, group)
+        return out.to(g.dtype), None
+
+class _Share(torch.autograd.Function):
+    """Identity; transpose: 1/n of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+class _Even(torch.autograd.Function):
+    """Identity; transpose: the psum of the cotangent over ``groups``
+    (f32), divided by their size."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, n = g.float(), 1
+        for group in ctx.groups:
+            m = _f32_psum(m, group)
+            n *= dist.get_world_size(group)
+        return (m / n).to(g.dtype), None
+
+
+def _psum_mesh(t, mesh, axis: Optional[str]):
+    names = tuple(mesh.mesh_dim_names)
+    if axis is None or mesh.shape[names.index(axis)] == 1:
+        return t
+    return _AllReduce.apply(t, _group(mesh, axis))
+
+
+def _gather_mesh(t, mesh, axis: str, dim: int):
+    n = mesh.shape[tuple(mesh.mesh_dim_names).index(axis)]
+    if n == 1:
+        return t
+    return _AllGather.apply(t, _group(mesh, axis), n, dim)
+
+
+def psum(t, env: ShardingEnv, axis: Optional[str]):
+    """``lax.psum`` of a rank's tensor over mesh axis ``axis`` (a new
+    tensor); its transpose is a psum (summed in f32)."""
+    if axis is None or env.axis_sizes.get(axis, 1) == 1:
+        return t
+    return _psum_mesh(t, env.mesh, axis)
+
+
+def all_gather(t, env: ShardingEnv, axis: str, dim: int):
+    """``lax.all_gather(t, axis, axis=dim, tiled=True)``: the ranks'
+    blocks along ``dim`` in the axis' order; its transpose is a
+    reduce-scatter (summed in f32)."""
+    if env.axis_sizes.get(axis, 1) == 1:
+        return t
+    return _gather_mesh(t, env.mesh, axis, dim)
+
+
+def gathered_bmm(x, w, env: ShardingEnv, axis: Optional[str], dim: int):
+    """``torch.bmm(x, all_gather(w, axis, dim))`` for a weight split over
+    ``axis`` (FSDP's), gathered in the forward and again in the backward
+    and kept for neither, as FSDP reshards a weight after its use: a rank
+    holds one gathered weight at a time.  The same arithmetic as the
+    gather then the product."""
+    if axis is None or env.axis_sizes.get(axis, 1) == 1:
+        return torch.bmm(x, w)
+    return _GatheredBmm.apply(x, w, _group(env.mesh, axis),
+                        env.axis_sizes[axis], dim)
+
+
+def pmax(t, env: ShardingEnv, axis: Optional[str]):
+    """The largest value over mesh axis ``axis``, elementwise, outside
+    autograd (a detached tensor)."""
+    if axis is None or env.axis_sizes.get(axis, 1) == 1:
+        return t.detach()
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(env.mesh, axis))
+    return out
+
+
+def rank_share(t, env: ShardingEnv):
+    """``t``, a value equal on every rank (the loss), whose cotangent is
+    each rank's 1/n share: the seeds of the n ranks add up to one."""
+    n = math.prod(env.mesh.shape) if env.mesh is not None else 1
+    return t if n == 1 else _Share.apply(t, n)
+
+
+def even(t, env: ShardingEnv, axes):
+    """``t``, a rank's copy of a value replicated over mesh ``axes``, as
+    is; its transpose replaces each rank's share of the cotangent by the
+    mean of the ranks' shares (an f32 psum, divided by their number).
+    The sum over ranks, so the gradient, is the same; where the ranks
+    along ``axes`` feed different work (their heads, their vocab slice)
+    from one copied value, each share is otherwise a partial sum rounded
+    on its own (bf16) through the layers below, where one device rounds
+    the whole sum once."""
+    groups = [_group(env.mesh, a) for a in axes
+              if env.axis_sizes.get(a, 1) > 1]
+    return _Even.apply(t, groups) if groups else t
+
+
+def copies(tree):
+    """Each DTensor leaf of a nested dict (a param) as a DTensor over an
+    identity of its shard whose gradient is summed over the mesh axes
+    the leaf is replicated over: the ranks along them hold copies of one
+    value, and each computes with its own.  Other leaves pass."""
+    if isinstance(tree, dict):
+        return {k: copies(v) for k, v in tree.items()}
+    from torch.distributed.tensor import DTensor
+    if not isinstance(tree, DTensor):
+        return tree
+    mesh = tree.device_mesh
+    groups = [_group(mesh, a) for a, pl, n in zip(mesh.mesh_dim_names,
+                                                  tree.placements, mesh.shape)
+              if pl.is_replicate() and n > 1]
+    if not groups or not tree.requires_grad:
+        return tree
+    return DTensor.from_local(_Copies.apply(tree.to_local(), groups), mesh,
+                              tree.placements, run_check=False,
+                              shape=tree.shape, stride=tree.stride())
+
+
+def _splits(pls, d: int):
+    """The mesh dims that split tensor dim ``d``, in mesh order."""
+    return [m for m, pl in enumerate(pls)
+            if pl.is_shard() and pl.dim == d]
+
+
+def _direct(x, mesh, target):
+    """x's shard laid out as ``target`` by the collectives of this module:
+    each ``Partial`` mesh dim summed (``psum``), then each tensor dim's
+    shards that ``target`` does not keep gathered (innermost mesh dim
+    first), then the shards it adds cut out of the rank's block (outermost
+    first).  Shards of one tensor dim over several mesh dims nest in mesh
+    order, as DTensor's ``Shard`` does.  None for a change it cannot make
+    so (a strided shard, an uneven cut, a sum other than 'sum', a partial
+    target)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     src = tuple(x.placements)
-    for pls in (src, target):
-        dims = [pl.dim for pl in pls if isinstance(pl, Shard)]
-        if len(dims) != len(set(dims)) or any(
-                type(pl) not in (Shard, Replicate, Partial) for pl in pls):
-            return None
+    if any(type(pl) not in (Shard, Replicate, Partial)
+           for pl in src + tuple(target)):
+        return None
     if any(isinstance(pl, Partial) for pl in target) or any(
             isinstance(pl, Partial) and pl.reduce_op != "sum" for pl in src):
         return None
+    names, sizes = tuple(mesh.mesh_dim_names), tuple(mesh.shape)
+    gathers, cuts = [], []
+    for d in range(x.dim()):
+        s, g = _splits(src, d), _splits(target, d)
+        k = 0
+        while k < min(len(s), len(g)) and s[k] == g[k]:
+            k += 1
+        gathers += [(m, d) for m in s[k:]]
+        cuts += [(m, d) for m in g[k:]]
     t = x.to_local()
-    names = env.mesh.mesh_dim_names
-    for m, a in enumerate(src):
-        if isinstance(a, Partial):
-            t = psum(t, env, names[m])
-    for m, (a, b) in enumerate(zip(src, target)):
-        if isinstance(a, Shard) and a != b:
-            if not isinstance(b, Replicate):
-                return None
-            t = all_gather(t, env, names[m], a.dim)
-    for m, (a, b) in enumerate(zip(src, target)):
-        if isinstance(b, Shard) and a != b:
-            n = t.shape[b.dim] // env.axis_sizes[names[m]]
-            t = t.narrow(b.dim, env.mesh.get_local_rank(names[m]) * n, n)
+    for m, pl in enumerate(src):
+        if isinstance(pl, Partial):
+            t = _psum_mesh(t, mesh, names[m])
+    for m, d in sorted(gathers, reverse=True):
+        t = _gather_mesh(t, mesh, names[m], d)
+    for m, d in sorted(cuts):
+        if t.shape[d] % sizes[m]:
+            return None
+        n = t.shape[d] // sizes[m]
+        t = t.narrow(d, mesh.get_local_rank(names[m]) * n, n)
     return t.contiguous()
+
+
+def relayout(x, target):
+    """The DTensor x laid out as ``target`` (placements): the sums,
+    gathers and cuts of ``_direct`` on x's shard, past DTensor's
+    ``redistribute`` (the sharded decode is host-bound, and that
+    machinery costs several times the collective), under autograd with
+    this module's transposes.  A change ``_direct`` cannot make goes
+    through ``redistribute``, outside autograd only: its gradient follows
+    another convention."""
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    local = _direct(x, mesh, target)
+    if local is None:
+        if x.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"relayout {tuple(x.placements)} -> {tuple(target)} under "
+                f"autograd: only sums, gathers and cuts of whole shards "
+                f"have their transposes here")
+        return x.redistribute(mesh, target)
+    return DTensor.from_local(local, mesh, target, run_check=False,
+                              shape=x.shape,
+                              stride=contiguous_strides(x.shape))
+
+
+def whole(t):
+    """A DTensor whole on this rank, as a local tensor (its shards
+    gathered and its pending sums taken where it has any)."""
+    from torch.distributed.tensor import Replicate
+    if all(isinstance(pl, Replicate) for pl in t.placements):
+        return t.to_local()
+    return relayout(t, (Replicate(),) * t.device_mesh.ndim).to_local()
 
 
 def tree_map_with_path(fn, tree, path=()):
@@ -408,18 +682,19 @@ def distribute(tree, shardings):
     """Every leaf of a nested dict (each rank holding it whole) as the
     DTensor its ``NamedSharding`` in ``shardings`` lays out: each rank
     copies its own block out of its own whole tensor (no data moves), so
-    no two ranks share memory and a cache can be updated in place."""
+    no two ranks share memory and a cache can be updated in place.  The
+    blocks are new leaves, outside any graph the whole tensors are in."""
     if isinstance(tree, dict):
         return {k: distribute(v, shardings[k]) for k, v in tree.items()}
-    import torch
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     mesh, pls = shardings.mesh, shardings.placements
     shape, offset = compute_local_shape_and_global_offset(tree.shape, mesh,
                                                           pls)
-    local = tree[tuple(slice(o, o + n) for o, n in zip(offset, shape))
-                 ].clone(memory_format=torch.contiguous_format)
+    local = tree.detach()[tuple(slice(o, o + n)
+                                for o, n in zip(offset, shape))].clone(
+        memory_format=torch.contiguous_format)
     return DTensor.from_local(local, mesh, pls, run_check=False,
                               shape=tree.shape,
                               stride=contiguous_strides(tree.shape))

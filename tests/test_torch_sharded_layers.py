@@ -187,16 +187,11 @@ def test_kernel_wrappers_refuse_a_dtensor():
                                  t_seamless.tiny()],
                          ids=lambda c: c.name)
 def test_unported_families_refuse_a_mesh(cfg):
-    """The families served on a mesh since ROADMAP Queue 1 item 3b still
-    refuse to train on one (item 3c), and paged decode refuses them as it
-    does on one device."""
+    """Paged decode refuses the families served on a mesh since ROADMAP
+    Queue 1 item 3b, as it does on one device (they train on a mesh since
+    item 3c: tests/test_torch_sharded_train_*.py)."""
     def rank(env):
         toks = torch.ones(2, 4, dtype=torch.int32)
-        batch = ({"frames": torch.zeros(2, 4, cfg.d_model),
-                  "tgt_tokens": toks, "tgt_labels": toks} if cfg.enc_dec
-                 else {"tokens": toks, "labels": toks})
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            tlm.forward_train({}, batch, cfg, env)
         with pytest.raises(ValueError, match="uniform GQA"):
             tlm.decode_step_paged({}, toks[:, :1], None, None, None, None,
                                   None, None, cfg, env)
@@ -206,22 +201,25 @@ def test_unported_families_refuse_a_mesh(cfg):
 
 
 def test_training_and_paged_decode_refuse_a_mesh():
-    """Training refuses a mesh (ROADMAP Queue 1 item 3c); paged decode
-    on a mesh gets past the mesh check (it then reads the pool, here
-    missing)."""
+    """Paged decode on a mesh gets past the mesh check (it then reads the
+    pool, here missing).  Training runs on a mesh since ROADMAP Queue 1
+    item 3c: ``forward_train`` then takes its options from ``env.opts``
+    and refuses ``opts=``, and ``train_loop`` refuses a mesh that is not a
+    ``DeviceMesh``."""
     cfg = t_llama.tiny()
 
     def rank(env):
         toks = torch.ones(2, 4, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            tlm.forward_train({}, {"tokens": toks, "labels": toks}, cfg, env)
+        with pytest.raises(ValueError, match="env.opts"):
+            tlm.forward_train({}, {"tokens": toks, "labels": toks}, cfg,
+                              env, opts={"remat": True})
         with pytest.raises(KeyError, match="embed"):
             tlm.decode_step_paged({}, toks[:, :1], None, None, None, None,
                                   None, None, cfg, env)
         return True
 
     assert all(on_mesh(1, 2, rank))
-    with pytest.raises(NotImplementedError, match="item 3c"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         ttrain.train_loop("micro", steps=1, mesh=object(), device="cpu")
 
 

@@ -305,7 +305,9 @@ def test_forward_train_refuses_options_it_does_not_port():
 
 
 def test_train_loop_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    """A mesh must be a ``DeviceMesh`` with the axes ("data", "model")
+    (training on one: tests/test_torch_sharded_train_loop.py)."""
+    with pytest.raises(ValueError, match='DeviceMesh with the axes'):
         ttrain.train_loop("micro", steps=1, mesh=object(), device="cpu")
 
 

@@ -40,7 +40,8 @@ class SameRouting:
     """``rows`` (a sharded port run in a threaded world): each rank thread
     replays every recorded call from its own queue, taking the token rows
     ``rows(n, m)`` .. + m of a call of ``n`` recorded rows where its own
-    call routes ``m`` (its batch shard)."""
+    call routes ``m`` (its batch shard); with ``traced`` too (a sharded
+    training run), a recomputed call replays the rank's own pick."""
 
     def __init__(self, monkeypatch, traced=False, rows=None):
         self.calls, self.flips, held = [], 0, {}
@@ -64,13 +65,28 @@ class SameRouting:
                 self.calls.append((np.array(probs), np.array(e)))
             return p, e
 
+        def picks():
+            """The picks already replayed: each rank thread's own where
+            ``rows`` is given (two ranks of one data shard route the same
+            rows)."""
+            if rows is None:
+                return held
+            if not hasattr(mine, "held"):
+                mine.held = {}
+            return mine.held
+
         def replay(x2d, w, k):
-            key = (w.data_ptr(), x2d.detach().float().numpy().tobytes())
-            if traced and key in held:
-                probs_j, ids_j = held[key]
+            # a sharded run gathers the router weight anew at each call, a
+            # recomputed one too: key it by its values there
+            wkey = (w.data_ptr() if rows is None
+                    else w.detach().float().numpy().tobytes())
+            key = (wkey, x2d.detach().float().numpy().tobytes())
+            done = picks()
+            if traced and key in done:
+                probs_j, ids_j = done[key]
             else:
                 probs_j, ids_j = take()
-                held[key] = probs_j, ids_j
+                done[key] = probs_j, ids_j
             if rows is not None:
                 start = rows(probs_j.shape[0], x2d.shape[0])
                 probs_j = probs_j[start:start + x2d.shape[0]]
