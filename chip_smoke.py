@@ -229,6 +229,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the spread study instead (PERF.md §6): rwkv6-7b in f32 with ln_x
    rounded (depths 2 and 4) and unrounded (depth 2), jamba on two seeds.  Limits: ``TOL_SHARDED_LOSS``,
    ``TOL_SHARDED_GRAD``, ``TOL_SHARDED_STEPS`` (PERF.md).
+16. The dry run held to the card, in a child process (``chip_smoke.py
+   --dryrun CARD``) on one thread-rank (a (1, 1) mesh on "cuda"):
+   llama3.2-3b at full width and depth trained (B=2 x 1024, one step of
+   ``launch.train.make_train_step``: forward, backward, AdamW) under
+   ``remat_policy`` "full" and "dots", decoded (B=4, one step over an
+   8192-token cache) and jamba (depth 8) prefilled (B=2 x 1024).  Each
+   step measured on meta by the dry run's functions, then run on the card
+   on seed-0 params laid out the same way: the predicted peak within
+   ``TOL_DRYRUN_PEAK`` of ``max_memory_allocated``, the aten FLOPs equal,
+   each kernel's tallied calls equal to its launches and the bytes its
+   meta route allocated equal to those the allocator hands out in its
+   calls; ``paged_decode``'s route planted without its scratch must part
+   from the card; "dots" gives "full"'s loss and gradients (``TOL_BF16``)
+   with fewer backward FLOPs; the first cell's prediction, the child's
+   first step, is made twice and the two equal (peak, FLOPs, bytes:
+   DTensor's propagation ops on fake tensors counted by neither).  Phase
+   2's bounds take each kernel's work from the functions the dry run
+   tallies (``flash_prefill_work``,
+   ``paged_decode_work``, ``paged_append_work``, ``wkv6_work``,
+   ``mamba_scan_work``).
    Phases 5-6 and 9-10 run through one ``serve_path``, with phases 5-6's
    forward on the prompt and prefill-vs-forward check.  Both phases run
    before a failed check ends the script; each counts its launches under
@@ -402,9 +422,8 @@ def flash_phase(torch, gen, gen_more):
                            enable_gqa=True))
         dev = device_ms(torch, lambda: F.flash_prefill(q, k, v, causal=True),
                         "flash_prefill_kernel")
-        pairs = B * H * S * (S + 1) // 2
-        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
-        bms, by = bound(nbytes, 4 * D * pairs)
+        flops, nbytes = F.flash_prefill_work(B, S, S, H, K, D, D)
+        bms, by = bound(nbytes, flops)
         times.append({"shape": f"B={B} S={S} H={H} K={K} D={D} causal",
                       "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
@@ -467,9 +486,9 @@ def flash_long_shapes(torch, gen, rec, cases=FLASH_LONG):
                                enable_gqa=True)
         lib_ms = timed(torch, lib, iters=5)
         # (query, key) pairs each query head scores: the band's
-        pairs = B * H * sum(min(t + 1, window or S) for t in range(S))
-        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
-        bms, by = bound(nbytes, 4 * D * pairs)
+        flops, nbytes = F.flash_prefill_work(B, S, S, H, K, D, D,
+                                             window=window)
+        bms, by = bound(nbytes, flops)
         shape = (f"B={B} S={S} H={H} K={K} D={D} causal"
                  + (f" window={window}" if window else ""))
         rec["more_shapes"].append({
@@ -526,9 +545,9 @@ def flash_width_shapes(torch, gen, rec, cases=FLASH_WIDTH):
         except RuntimeError as e:          # no backend takes the shape
             log(f"  sdpa at {label}: {str(e).splitlines()[0][:120]}")
             lib_ms = None
-        pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
-        nbytes = 2 * (B * Sq * H * (D + Dv) + B * Sk * K * (D + Dv))
-        bms, by = bound(nbytes, 2 * (D + Dv) * pairs)
+        flops, nbytes = F.flash_prefill_work(B, Sq, Sk, H, K, D, Dv,
+                                             causal=causal)
+        bms, by = bound(nbytes, flops)
         shape = (f"{label}: B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} Dv={Dv} "
                  + ("causal" if causal else "non-causal"))
         rec["more_shapes"].append({
@@ -601,9 +620,8 @@ def paged_phase(torch, gen, gen_more):
         dev = device_ms(torch, lambda: P.paged_decode(q, kp, vp, tables,
                                                       lens),
                         "paged_decode_kernel")
-        nbytes = (2 * B * H * dh * 2 + B * nb * 4 + B * 4
-                  + n_tok * K * dh * 2 * 2)
-        bms, by = bound(nbytes, 4 * H * dh * n_tok)
+        flops, nbytes = P.paged_decode_work(B, H, K, dh, nb, n_tok)
+        bms, by = bound(nbytes, flops)
         recs["paged_decode"] = {
             "name": "paged_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -623,7 +641,7 @@ def paged_phase(torch, gen, gen_more):
         adev = device_ms(torch, lambda: P.paged_append(
             kp, vp, k_new, v_new, ablk, aoff), "paged_append_kernel")
         n_rows = int(((ablk >= 0) & (ablk < nblocks)).sum())
-        abms, aby = bound(2 * 2 * n_rows * K * dh * 2 + 2 * B * 4, 0.0)
+        abms, aby = bound(*reversed(P.paged_append_work(B, K, dh, n_rows)))
         recs["paged_append"] = {
             "name": "paged_append", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -749,8 +767,8 @@ def paged_more_shapes(torch, gen, errs, cases=PAGED_MORE):
             lib_ms = timed(torch, lib)
         # the keys each row reads: the window clips a long row
         n_tok = sum(min(n, window) if window else n for n in lens)
-        bms, by = bound(2 * B * H * dh * 2 + B * nb * 4 + B * 4
-                        + n_tok * K * dh * 2 * 2, 4 * H * dh * n_tok)
+        flops, nbytes = P.paged_decode_work(B, H, K, dh, nb, n_tok)
+        bms, by = bound(nbytes, flops)
         span, splits = P.split_schedule(
             nb, block, B * K,
             torch.cuda.get_device_properties(0).multi_processor_count)
@@ -816,7 +834,7 @@ def append_shape(torch, P, mk, errs, out_recs, label, tables, lens, kp, vp,
     plain_ms = timed(torch, lambda: P.paged_append_plain(
         kp2, vp2, k_new, v_new, ablk, aoff))
     n_rows = int((ablk < nblocks).sum())
-    bms, by = bound(2 * 2 * n_rows * K * dh * 2 + 2 * B * 4, 0.0)
+    bms, by = bound(*reversed(P.paged_append_work(B, K, dh, n_rows)))
     out_recs["paged_append"].append({
         "shape": f"{label}: B={B} K={K} dh={dh}, {B - n_rows} sentinel "
                  f"rows", "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
@@ -843,11 +861,6 @@ def wkv6_phase(torch, gen):
         u = mk(H, dh) * 0.3
         return r, k, v, w, u, (mk(B, H, dh, dh) if state else None)
 
-    def nbytes(B, T, H, dh, state):
-        """r, k, v, w and o once, u, and the state out (and in)."""
-        return (B * T * H * dh * (3 * 2 + 4 + 4) + H * dh * 4
-                + (1 + state) * B * H * dh * dh * 4)
-
     errs, rec, decode = [], None, None
     for B, T, H, dh, state in [(4, 1024, 64, 64, False), (4, 1, 64, 64, True),
                                (2, 37, 4, 16, True), (2, 1, 4, 16, True)]:
@@ -866,12 +879,8 @@ def wkv6_phase(torch, gen):
             plain_ms = timed(torch, lambda: R.wkv6_plain(*args), iters=2,
                              warmup=1)
             dev = device_ms(torch, lambda: R.wkv6(*args), "wkv6_kernel")
-            n = B * T * H * dh
-            # per (b, t, h): w*S + k v^T (a multiply and an FMA) and r.S
-            # (an FMA) on dh^2 state elements, 5 flops each; the u term
-            # v_j * sum_i r_i u_i k_i and its add, 5 per head lane
-            bms, by = bound(nbytes(B, T, H, dh, state), n * (5 * dh + 5),
-                            F32_FLOPS)
+            flops, nbytes = R.wkv6_work(B, T, H, dh, state)
+            bms, by = bound(nbytes, flops, F32_FLOPS)
             rec = {"name": "wkv6", "route": "cuda",
                    "source": "src/repro_torch/csrc/wkv6.cu",
                    "replaces": "src/repro/kernels/rwkv6/kernel.py:47",
@@ -883,11 +892,11 @@ def wkv6_phase(torch, gen):
             log(f"  wkv6 time {ms:.4f} ms (device {dev} ms)  plain "
                 f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})")
     (B, T, H, dh, state), args = decode       # rwkv6-7b's decode step
+    flops, nbytes = R.wkv6_work(B, T, H, dh, state)
     rec["more_shapes"] = [decode_time(
         torch, lambda: R.wkv6(*args), lambda: R.wkv6_plain(*args),
-        "wkv6_kernel",
-        f"B={B} T={T} H={H} dh={dh} state in",
-        nbytes(B, T, H, dh, state), B * T * H * dh * (5 * dh + 5))]
+        "wkv6_kernel", f"B={B} T={T} H={H} dh={dh} state in", nbytes,
+        flops)]
     rec["max_abs_err"] = max(errs)
     return rec
 
@@ -937,11 +946,6 @@ def mamba_phase(torch, gen):
         return (x, dt, dbc[..., dtr:dtr + ds], dbc[..., dtr + ds:], A, D,
                 mk(B, di, ds) * 0.5 if state else None)
 
-    def nbytes(B, T, di, ds, state):
-        """x, dt, B, C and y once, A and D, the state out (and in)."""
-        return (B * T * di * (2 + 2 + 4) + 2 * B * T * ds * 2 + di * ds * 4
-                + di * 4 + (1 + state) * B * di * ds * 4)
-
     errs, rec, decode = [], None, None
     for B, T, di, ds, dtr, state, rnd in [
             (2, 1024, 8192, 16, 256, False, True),
@@ -973,8 +977,8 @@ def mamba_phase(torch, gen):
                 *args, round_y=True), iters=2, warmup=1)
             dev = device_ms(torch, lambda: M.mamba_scan(*args, round_y=True),
                             "mamba_scan_kernel")
-            bms, by = bound(nbytes(B, T, di, ds, state),
-                            B * T * di * (7 * ds + 3), F32_FLOPS)
+            flops, nbytes = M.mamba_scan_work(B, T, di, ds, state)
+            bms, by = bound(nbytes, flops, F32_FLOPS)
             rec = {"name": "mamba_scan", "route": "cuda",
                    "source": "src/repro_torch/csrc/mamba_scan.cu",
                    "replaces": "src/repro/kernels/mamba_scan/kernel.py:45",
@@ -991,9 +995,8 @@ def mamba_phase(torch, gen):
     (B, T, di, ds, state), args = decode      # jamba's decode step
     rec["more_shapes"] = [decode_time(
         torch, lambda: M.mamba_scan(*args), lambda: M.mamba_scan_plain(*args),
-        "mamba_scan_kernel",
-        f"B={B} T={T} di={di} ds={ds} state in",
-        nbytes(B, T, di, ds, state), B * T * di * (7 * ds + 3))]
+        "mamba_scan_kernel", f"B={B} T={T} di={di} ds={ds} state in",
+        *reversed(M.mamba_scan_work(B, T, di, ds, state)))]
     rec["more_shapes"][0]["sfu_floor_ms"] = sfu_floor_ms(torch, B * di * ds)
     rec["max_abs_err"] = max(errs)
     return rec
@@ -1028,11 +1031,10 @@ def scan_rank_shapes(torch, gen, wkv_rec, mamba_rec):
         err = check(f"wkv6 {shape} (out, S_T)",
                     max(rel_err(out, ref), rel_err(s_T, ref_T)), tol=TOL_SCAN)
         wkv_rec["max_abs_err"] = max(wkv_rec["max_abs_err"], err)
-        nbytes = (B * T * H * dh * (3 * 2 + 4 + 4) + H * dh * 4
-                  + (1 + state) * B * H * dh * dh * 4)
+        flops, nbytes = R.wkv6_work(B, T, H, dh, state)
         wkv_rec["more_shapes"].append(decode_time(
             torch, lambda: R.wkv6(*args), lambda: R.wkv6_plain(*args),
-            "wkv6_kernel", shape, nbytes, B * T * H * dh * (5 * dh + 5)))
+            "wkv6_kernel", shape, nbytes, flops))
     di, ds, dtr = 4096, 16, 256
     for T, state in ((1024, False), (1, True)):
         x = mk(B, T, di).to(torch.bfloat16)
@@ -1062,12 +1064,11 @@ def scan_rank_shapes(torch, gen, wkv_rec, mamba_rec):
         errs.append(check(f"mamba_scan {shape} (h_T)", rel_err(h_T, ref_T),
                           tol=TOL_SCAN))
         mamba_rec["max_abs_err"] = max([mamba_rec["max_abs_err"], *errs])
-        nbytes = (B * T * di * (2 + 2 + 4) + 2 * B * T * ds * 2
-                  + di * ds * 4 + di * 4 + (1 + state) * B * di * ds * 4)
+        flops, nbytes = M.mamba_scan_work(B, T, di, ds, state)
         rec = decode_time(
             torch, lambda: M.mamba_scan(*args, round_y=rnd),
             lambda: M.mamba_scan_plain(*args, round_y=rnd),
-            "mamba_scan_kernel", shape, nbytes, B * T * di * (7 * ds + 3))
+            "mamba_scan_kernel", shape, nbytes, flops)
         rec["sfu_floor_ms"] = sfu_floor_ms(torch, B * T * di * ds)
         mamba_rec["more_shapes"].append(rec)
 
@@ -2700,8 +2701,8 @@ def _tree(items):
 # phases 1-11's state.  The meshes are DTensor ``DeviceMesh``es on "cuda"
 # over ``launch.mesh.fake_world(512)``: this process is rank 0, so the card
 # is rank 0's device, and only rank 0's shards exist.  Per-device bytes
-# count params, AdamW moments, caches and inputs, not activations (that is
-# the dry run's, ROADMAP Queue 1 item 3).
+# count params, AdamW moments, caches and inputs, not activations (the dry
+# run's peak counts those: ``launch/dryrun.py``, phase 16).
 LAYOUT_MESHES = ("16x16", "2x16x16", "8x8")
 PLACE_ARCH, PLACE_MESH = "deepseek-v2-236b", "8x8"
 # memory_allocated counts the caching allocator's blocks: a request is
@@ -4704,6 +4705,320 @@ def sharded_train_main(card: str) -> int:
     return 1 if fails else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run held to the card
+# ---------------------------------------------------------------------------
+# In a child process (``--dryrun``), one thread-rank (``threaded_world(1)``,
+# a (1, 1) mesh on "cuda") under the dry run's default options.  Each cell's
+# step (``launch.dryrun.make_step_fn``) is first measured on meta DTensors by
+# the dry run's own functions (``prepare``, ``place``, ``measure``), then run
+# for real on the card on seeded params laid out the same way
+# (``materialize``).  The predicted peak (MemTracker on meta, the arguments
+# included) against ``max_memory_allocated`` reset after the arguments are
+# placed: within TOL_DRYRUN_PEAK of the measured peak.  The aten FLOPs of
+# the two runs equal; each kernel's tallied calls equal its launches, and
+# the bytes its route allocated on meta equal the bytes the allocator hands
+# out inside its calls on the card (``requested_bytes``, exact): a route
+# that leaves out a scratch buffer (planted: ``paged_decode``'s split
+# buffer) fails there, where a peak of many GiB cannot show ~45 MiB.  The
+# first cell's prediction is the thread's first step (DTensor's sharding
+# propagation runs ops on fake tensors where its cache misses); it is made
+# again at once, and the two must give the same peak, FLOPs and bytes.
+TOL_DRYRUN_PEAK = 0.10
+DRYRUN_COUNTS = "DRYRUN_LAUNCHES "
+# (label, arch, depth or None, kind, batch, seq, remat policy)
+DRYRUN_CELLS = (
+    ("llama3.2-3b train full", "llama3.2-3b", None, "train", 2, 1024,
+     "full"),
+    ("llama3.2-3b train dots", "llama3.2-3b", None, "train", 2, 1024,
+     "dots"),
+    ("llama3.2-3b decode", "llama3.2-3b", None, "decode", 4, 8192, None),
+    ("jamba prefill", "jamba-v0.1-52b", 8, "prefill", 2, 1024, None),
+)
+
+
+def dryrun_phase(card: str) -> dict:
+    """Phase 16: ``dryrun_main`` in a child process; its output echoed, its
+    launch counts by path returned.  Fails unless the child exits 0."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--dryrun", card], timeout=400,
+                         stdout=subprocess.PIPE, text=True)
+    counts_ = None
+    for line in res.stdout.splitlines():
+        if line.startswith(DRYRUN_COUNTS):
+            counts_ = json.loads(line[len(DRYRUN_COUNTS):])
+        else:
+            log(line)
+    log(f"  phase 16 wall with the child's start "
+        f"{time.perf_counter() - t0:.1f} s")
+    if res.returncode or counts_ is None:
+        raise AssertionError(f"phase 16 (the dry run on the card) failed: "
+                             f"exit {res.returncode}")
+    return counts_
+
+
+class AllocMeter:
+    """The kernel wrappers the model modules call, each wrapped so the
+    bytes the CUDA allocator hands out inside its calls
+    (``requested_bytes.all.allocated``, summed by kernel) are counted;
+    ``close`` puts the wrappers back."""
+
+    def __init__(self, torch):
+        from repro_torch.models import layers, mamba, rwkv
+        self.torch, self.bytes, self.kept = torch, {}, []
+        for mod in (layers, mamba, rwkv):
+            for name in ("flash_prefill", "paged_decode", "paged_append",
+                         "wkv6", "mamba_scan"):
+                if hasattr(mod, name):
+                    fn = getattr(mod, name)
+                    self.kept.append((mod, name, fn))
+                    setattr(mod, name, self._metered(name, fn))
+
+    def _requested(self):
+        return self.torch.cuda.memory_stats()[
+            "requested_bytes.all.allocated"]
+
+    def _metered(self, name, fn):
+        def call(*a, **kw):
+            before = self._requested()
+            out = fn(*a, **kw)
+            self.bytes[name] = self.bytes.get(name, 0) \
+                + self._requested() - before
+            return out
+        return call
+
+    def close(self):
+        for mod, name, fn in self.kept:
+            setattr(mod, name, fn)
+
+
+class NoScratch:
+    """``torch`` for ``kernels/paged_attention/ops.py`` with its f32 meta
+    allocations (the decode's split buffer on the dry run's route) made
+    empty: the planted fault of a route that leaves out its scratch."""
+
+    def __init__(self, torch):
+        self._torch = torch
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def empty(self, *shape, dtype=None, device=None, **kw):
+        if dtype == self._torch.float32 and \
+                self._torch.device(device).type == "meta":
+            shape = (0,)
+        return self._torch.empty(*shape, dtype=dtype, device=device, **kw)
+
+
+def dryrun_cfg(name, depth):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def predicted(D, cfg, kind, info, mesh, opts):
+    """The dry run's record of a cell's step on meta DTensors."""
+    env, spec, step = D.prepare(cfg, kind, mesh, opts, info)
+    args = D.place(spec, mesh)
+    t0 = time.perf_counter()
+    out, c = D.measure(step, args)
+    rec = D.summarize(cfg, info, spec, mesh, args, out, c)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def remat_grads(torch, lm, cfg, args, mesh, D, fails, card):
+    """Phase 16's train cell: ``forward_train`` + backward on the card
+    under whole-layer remat and under ``remat_policy="dots"`` from the
+    same params: the loss within TOL_BF16 relative and every gradient leaf
+    within TOL_BF16 of its largest magnitude (phase 11's limits)."""
+    from repro_torch.models.sharding import ShardingEnv
+    params, batch = args[0], args[2]
+    got = {}
+    for pol in ("full", "dots"):
+        env = ShardingEnv(mesh, dict(D.DEFAULT_OPTS, remat=True,
+                                     remat_policy=pol))
+        loss = lm.forward_train(params, batch, cfg, env)
+        loss.backward()
+        got[pol] = float(loss.detach())
+        if pol == "full":
+            kept = {k: p.grad.to_local().clone()
+                    for k, p in named_leaves(params)}
+        else:
+            worst = max(
+                float((p.grad.to_local().float() - kept[k].float()).abs()
+                      .max()) / max(float(kept[k].float().abs().max()),
+                                    1e-30)
+                for k, p in named_leaves(params))
+            del kept
+        clear_grads(params)
+    rel = abs(got["dots"] - got["full"]) / abs(got["full"])
+    log(f"  remat dots vs full on the card: loss {got['dots']:.6f} vs "
+        f"{got['full']:.6f} ({rel:.2e} relative), largest gradient leaf "
+        f"{worst:.2e} of its largest magnitude [{card}]")
+    if not rel <= TOL_BF16 or not worst <= TOL_BF16:
+        fails.append(f"remat dots vs full: loss {rel:.2e}, gradients "
+                     f"{worst:.2e} (limit {TOL_BF16})")
+
+
+def dryrun_cell(torch, card, wrappers, fails, D, lm, mesh, cell,
+                twice=False):
+    """One phase-16 cell: the prediction on meta (with ``twice``, made
+    again and held equal to the first), then the same step on the card
+    (the arguments from seed 0), the two held to each other.  Returns
+    (prediction, measured launches, bytes the kernels' calls allocated on
+    the card)."""
+    label, name, depth, kind, B, S, pol = cell
+    cfg = dryrun_cfg(name, depth)
+    info = dict(seq=S, batch=B, kind=kind)
+    opts = dict(D.DEFAULT_OPTS, remat_policy=pol or "full")
+    pred = predicted(D, cfg, kind, info, mesh, opts)
+    if twice:
+        keys = ("aten_flops_per_device", "bytes_per_device")
+        first = (pred["memory"]["peak_bytes"], *(pred[k] for k in keys))
+        again = predicted(D, cfg, kind, info, mesh, opts)
+        second = (again["memory"]["peak_bytes"], *(again[k] for k in keys))
+        log(f"  {label}: the thread's first meta step (peak, aten FLOPs, "
+            f"bytes) {first}, the next {second} [{card}]")
+        if first != second:
+            fails.append(f"{label}: the first meta step {first} differs "
+                         f"from the next {second}")
+    env, spec, step = D.prepare(cfg, kind, mesh, opts, info)
+    values = D.materialize(cfg, spec, "cuda", seed=0)
+    args = D.place(spec, mesh, values)
+    del values
+    if kind == "train" and pol == "dots":
+        remat_grads(torch, lm, cfg, args, mesh, D, fails, card)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(wrappers)
+    meter = AllocMeter(torch)
+    t0 = time.perf_counter()
+    try:
+        out, c = D.measure(step, args)
+        torch.cuda.synchronize()
+    finally:
+        meter.close()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = counts(wrappers)
+    aten = c.aten_flops()
+    del out, c, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap = (pred["memory"]["peak_bytes"] - peak) / peak
+    log(f"  {label}: predicted peak {pred['memory']['peak_bytes']} bytes "
+        f"({pred['memory']['peak_bytes'] / GIB:.3f} GiB, arguments "
+        f"{pred['memory']['argument_bytes'] / GIB:.3f}) against "
+        f"max_memory_allocated {peak} ({peak / GIB:.3f} GiB): {gap:+.2%} "
+        f"(limit {TOL_DRYRUN_PEAK:.0%}) [{card}]")
+    log(f"  {label}: aten FLOPs predicted {pred['aten_flops_per_device']} "
+        f"measured {aten}"
+        + (f"; backward {pred['aten_backward_flops_per_device']}"
+           if kind == "train" else "")
+        + f"; meta step {pred['wall_s']:.1f} s, card step {wall:.2f} s")
+    if abs(gap) > TOL_DRYRUN_PEAK:
+        fails.append(f"{label}: predicted peak {gap:+.2%} off "
+                     f"max_memory_allocated (limit {TOL_DRYRUN_PEAK:.0%})")
+    if pred["aten_flops_per_device"] != aten:
+        fails.append(f"{label}: aten FLOPs {pred['aten_flops_per_device']} "
+                     f"predicted, {aten} on the card")
+    tally = pred["kernels"]
+    for k in wrappers:
+        calls = tally.get(k, {}).get("calls", 0)
+        alloc = tally.get(k, {}).get("alloc_bytes", 0)
+        if calls or launched[k]:
+            log(f"  {label}: {k} calls {calls} predicted, {launched[k]} "
+                f"launched; bytes allocated {alloc} predicted, "
+                f"{meter.bytes.get(k, 0)} on the card")
+        if calls != launched[k]:
+            fails.append(f"{label}: {k} {calls} calls predicted, "
+                         f"{launched[k]} launched")
+        if alloc != meter.bytes.get(k, 0):
+            fails.append(f"{label}: {k} allocated {alloc} bytes on meta, "
+                         f"{meter.bytes.get(k, 0)} on the card")
+    return pred, launched, meter.bytes
+
+
+def planted_scratch(D, mesh, cell, measured, fails, card):
+    """The planted fault: ``paged_decode``'s route without its split
+    buffer (``NoScratch``) on the decode cell; its predicted bytes must
+    part from the card's."""
+    from repro_torch.kernels.paged_attention import ops as P
+    import torch
+    label, name, depth, kind, B, S, pol = cell
+    kept = P.torch
+    P.torch = NoScratch(torch)
+    try:
+        pred = predicted(D, dryrun_cfg(name, depth), kind,
+                         dict(seq=S, batch=B, kind=kind), mesh,
+                         dict(D.DEFAULT_OPTS))
+    finally:
+        P.torch = kept
+    alloc = pred["kernels"]["paged_decode"]["alloc_bytes"]
+    log(f"  planted (paged_decode's route without its scratch): "
+        f"{alloc} bytes predicted against {measured} on the card; the "
+        f"peak {pred['memory']['peak_bytes']} bytes [{card}]")
+    if alloc == measured:
+        fails.append("the planted route without its scratch was not "
+                     "caught")
+
+
+def dryrun_cells(torch, card, wrappers, fails):
+    """Phase 16's cells on one thread-rank; returns the launches by
+    path."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.models import lm
+    mesh = make_worker_mesh(1, tp=1)
+    by_path, back = {}, {}
+    for cell in DRYRUN_CELLS:
+        pred, launched, alloc = dryrun_cell(torch, card, wrappers, fails, D,
+                                            lm, mesh, cell,
+                                            twice=cell is DRYRUN_CELLS[0])
+        by_path[f"dryrun {cell[0]}"] = launched
+        if cell[3] == "train":
+            back[cell[6]] = pred["aten_backward_flops_per_device"]
+        if cell[3] == "decode":
+            planted_scratch(D, mesh, cell, alloc.get("paged_decode", 0),
+                            fails, card)
+    log(f"  backward aten FLOPs: full remat {back['full']}, dots "
+        f"{back['dots']} ({back['dots'] / back['full']:.3f} of full)")
+    if not back["dots"] < back["full"]:
+        fails.append("remat dots counted no fewer backward FLOPs than full")
+    return by_path
+
+
+def dryrun_main(card: str) -> int:
+    """Phase 16 in the child: the cells on one thread-rank of a threaded
+    world; prints the launch counts by path on a line of their own; exit 0
+    only when every check held."""
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --dryrun: torch.cuda.is_available() is false")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.configs import load_all
+    from repro_torch.launch.mesh import threaded_world
+    load_all()
+    wrappers, fails = all_wrappers(), []
+    t0 = time.perf_counter()
+    cap = torch.cuda.get_device_properties(0).total_memory
+    log(f"  card total_memory {cap} bytes ({cap / GIB:.2f} GiB) [{card}]")
+    with threaded_world(1, timeout=600) as run:
+        by_path, = run(lambda r: dryrun_cells(torch, card, wrappers, fails))
+    log(f"  phase 16 wall {time.perf_counter() - t0:.1f} s")
+    print(DRYRUN_COUNTS + json.dumps(by_path), flush=True)
+    for f in fails:
+        log(f"  FAILED: {f}")
+    return 1 if fails else 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4807,11 +5122,15 @@ def main() -> int:
     log("phase 15: sharded training (llama3.2-3b, mixtral-8x22b, rwkv6-7b, "
         "jamba and seamless-m4t on 4 thread-ranks; a child process)")
     by_path.update(sharded_train_phase(card))
+    log("phase 16: the dry run held to the card (llama3.2-3b trained under "
+        "both remat policies and decoded, jamba's prefill; a child "
+        "process)")
+    by_path.update(dryrun_phase(card))
     for rec in kernels:
         # the sharded training paths are listed with their zero launches
         rec["launches_by_path"] = {
             p: n[rec["name"]] for p, n in by_path.items()
-            if n[rec["name"]] or p.startswith("sharded train")}
+            if n[rec["name"]] or p.startswith(("sharded train", "dryrun"))}
         rec["launches"] = sum(rec["launches_by_path"].values())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4829,4 +5148,6 @@ if __name__ == "__main__":
         sys.exit(rest_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sharded-train"]:
         sys.exit(sharded_train_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_main(sys.argv[2]))
     sys.exit(main())

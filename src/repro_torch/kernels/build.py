@@ -15,6 +15,7 @@ nvcc or a failed build raises; there is no fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,7 @@ import subprocess
 import sys
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -36,6 +37,10 @@ _FUNCS: Dict[tuple, object] = {}
 # the ranks of a threaded world call the wrappers from several threads
 _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+# the open dry run's tally: {kernel: {"calls", "flops", "bytes",
+# "alloc_bytes"}}, or None
+_DRY: Optional[Dict[str, Dict[str, int]]] = None
+_DRY_KEPT: Optional[dict] = None
 
 
 def _nvcc() -> str:
@@ -108,6 +113,57 @@ def count(wrapper) -> None:
     threaded world launch from several threads at once."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def dry_run():
+    """The dry run's route for the ``with`` block (one at a time, for
+    every thread): yields the tally {kernel: {"calls", "flops", "bytes",
+    "alloc_bytes"}} that the wrappers given meta tensors add to."""
+    global _DRY, _DRY_KEPT
+    with _COUNT_LOCK:
+        if _DRY is not None:
+            raise RuntimeError("build.dry_run: a dry run is already open")
+        _DRY = tally = {}
+        _DRY_KEPT = {}
+    try:
+        yield tally
+    finally:
+        with _COUNT_LOCK:
+            _DRY = _DRY_KEPT = None
+
+
+def dry_kept() -> dict:
+    """The open dry run's store for the buffers a CUDA path makes once a
+    process and keeps (``paged_decode``'s tickets): empty at each dry
+    run's start, so every measured step makes and holds them, as a card's
+    first step does, wherever the step falls in its process."""
+    return _DRY_KEPT
+
+
+def on_meta(name: str, t) -> bool:
+    """True where the wrapper ``name`` takes the dry run's route: ``t`` a
+    meta tensor inside ``dry_run``.  A meta tensor outside it raises."""
+    if t.device.type != "meta":
+        return False
+    if _DRY is None:
+        raise ValueError(f"{name}: unsupported device meta (a meta tensor "
+                         f"is measured only inside build.dry_run())")
+    return True
+
+
+def tally(name: str, work, *allocated) -> None:
+    """Add one call of kernel ``name`` to the open dry run's tally: ``work``
+    its (operations, bytes), ``allocated`` the meta tensors its route made
+    as the CUDA path makes them."""
+    with _COUNT_LOCK:
+        rec = _DRY.setdefault(name, {"calls": 0, "flops": 0, "bytes": 0,
+                                     "alloc_bytes": 0})
+        rec["calls"] += 1
+        rec["flops"] += int(work[0])
+        rec["bytes"] += int(work[1])
+        rec["alloc_bytes"] += sum(t.untyped_storage().nbytes()
+                                  for t in allocated)
 
 
 def refuse_dtensor(name: str, *tensors) -> None:

@@ -10,11 +10,15 @@ width (deepseek-v2's MLA prefill: D 192, Dv 128).  A CPU tensor goes to
 ``flash_prefill_plain``, at any widths; a CUDA tensor launches
 ``csrc/flash_attention.cu`` (bf16, (D, Dv) one of ``WIDTHS``: wgmma on the
 tensor cores, K/V streamed by TMA through a two-stage ring), which reads
-KV head h // (H/K) in place instead of expanding GQA.
+KV head h // (H/K) in place instead of expanding GQA.  Inside
+``build.dry_run()`` a meta tensor takes the dry run's route: the CUDA
+path's checks and output on meta, its work (``flash_prefill_work``)
+tallied, nothing launched.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -78,6 +82,29 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_prefill: q, k, v on different devices")
 
 
+@functools.lru_cache(maxsize=None)
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs one head scores: key j visible to query t
+    where j <= t (causal) and t - j < window (window > 0), as the kernel
+    and ``flash_prefill_plain`` mask them."""
+    n = 0
+    for t in range(Sq):
+        hi = min(t, Sk - 1) if causal else Sk - 1
+        lo = max(0, t - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def flash_prefill_work(B, Sq, Sk, H, K, D, Dv, *, causal=True, window=0,
+                       itemsize=2):
+    """(operations, bytes) of one call: 2 (D + Dv) a visible pair (the
+    q.k and p.v products), q, k, v read once and the output written
+    once."""
+    flops = 2 * (D + Dv) * B * H * visible_pairs(Sq, Sk, causal, window)
+    nbytes = itemsize * (B * Sq * H * (D + Dv) + B * Sk * K * (D + Dv))
+    return flops, nbytes
+
+
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv).  Returns
     (B, Sq, H, Dv)."""
@@ -85,7 +112,8 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    dry = build.on_meta("flash_prefill", q)
+    if not dry and q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
     build.refuse_autograd("flash_prefill", q, k, v)
     B, Sq, H, D = q.shape
@@ -99,6 +127,10 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
             raise ValueError(f"flash_prefill kernel wants contiguous, "
                              f"16-byte aligned bf16 {name}; got {t.dtype}")
     out = q.new_empty(B, Sq, H, Dv)
+    if dry:
+        build.tally("flash_prefill", flash_prefill_work(
+            B, Sq, Sk, H, K, D, Dv, causal=causal, window=window), out)
+        return out
     fn = build.function("flash_attention", "flash_prefill", _ARGTYPES)
     err = build.launch(q.device, fn, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,

@@ -10,7 +10,9 @@ A = -exp(A_log) as the model's scans do, an initial state, and returns
 the final one.  A CPU tensor goes to ``mamba_scan_plain``; a CUDA tensor
 launches ``csrc/mamba_scan.cu`` (x, dt, B, C bf16, A and D f32, d_state 8
 or 16), which reads B and C through their strides at any offset and x and
-dt by 16-byte copies.
+dt by 16-byte copies.  Inside ``build.dry_run()`` a meta tensor takes the
+dry run's route: the CUDA path's checks and outputs on meta, its work
+(``mamba_scan_work``) tallied, nothing launched.
 """
 from __future__ import annotations
 
@@ -30,6 +32,16 @@ ROUND_SHARE = 1e-2
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+
+
+def mamba_scan_work(B, T, di, ds, state_in: bool):
+    """(f32 operations, bytes) of one call: 7 ds + 3 a channel and step
+    (exp(dt A), the state update and h.C on ds state elements; dt x, the
+    D x term and its add); x, dt (bf16), B, C (bf16) and y (f32) once, A
+    and D, the state out (and in)."""
+    return (B * T * di * (7 * ds + 3),
+            B * T * di * (2 + 2 + 4) + 2 * B * T * ds * 2 + di * ds * 4
+            + di * 4 + (1 + state_in) * B * di * ds * 4)
 
 
 def mamba_scan_plain(x, dt, Bc, Cc, A, D, h0=None, *, round_y=False):
@@ -147,9 +159,11 @@ def _cuda_checks(x, dt, Bc, Cc, A, D, h0) -> None:
 
 def _launch(fn, x, dt, Bc, Cc, A, D, h0, round_y):
     """Checks the inputs and launches the kernel through the C function
-    ``fn`` (``mamba_scan``'s signature)."""
+    ``fn`` (``mamba_scan``'s signature; called with None on the dry run's
+    route, which launches nothing)."""
     _check(x, dt, Bc, Cc, A, D, h0)
-    if x.device.type != "cuda":
+    dry = build.on_meta("mamba_scan", x)
+    if not dry and x.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {x.device}")
     build.refuse_autograd("mamba_scan", x, dt, Bc, Cc, A, D, h0)
     _cuda_checks(x, dt, Bc, Cc, A, D, h0)
@@ -157,6 +171,10 @@ def _launch(fn, x, dt, Bc, Cc, A, D, h0, round_y):
     ds = A.shape[1]
     y = torch.empty(B, T, di, dtype=F32, device=x.device)
     h_T = torch.empty(B, di, ds, dtype=F32, device=x.device)
+    if dry:
+        build.tally("mamba_scan", mamba_scan_work(B, T, di, ds,
+                                                  h0 is not None), y, h_T)
+        return y, h_T
     strides = [s for t in (x, dt, Bc, Cc) for s in t.stride()[:2]]
     err = build.launch(x.device, fn, x.data_ptr(), dt.data_ptr(),
                        Bc.data_ptr(), Cc.data_ptr(), A.data_ptr(),
@@ -176,6 +194,8 @@ def mamba_scan(x, dt, Bc, Cc, A, D, h0=None, *, round_y: bool = False):
     if x.device.type == "cpu":
         _check(x, dt, Bc, Cc, A, D, h0)
         return mamba_scan_plain(x, dt, Bc, Cc, A, D, h0, round_y=round_y)
+    if x.device.type == "meta":
+        return _launch(None, x, dt, Bc, Cc, A, D, h0, round_y)
     out = _launch(build.function("mamba_scan", "mamba_scan", _ARGTYPES),
                   x, dt, Bc, Cc, A, D, h0, round_y)
     build.count(mamba_scan)

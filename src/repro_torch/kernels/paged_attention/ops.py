@@ -11,6 +11,9 @@ indices).  The decode kernel splits each row's positions across CTAs
 (``split_schedule``) and merges the splits in the same launch.  Torch
 indexing raises (or device-asserts) on the engine's out-of-range drop
 sentinel, which is why the append is a kernel and not ``index_put_``.
+Inside ``build.dry_run()`` a meta tensor takes the dry run's route: the
+CUDA path's checks, outputs and scratch on meta, the work
+(``paged_decode_work``, ``paged_append_work``) tallied, nothing launched.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ HEAD_DIMS = (16, 64, 128)
 CHUNK = 32          # tokens per ring chunk of the decode kernel (CH)
 MAX_SPLITS = 64     # the decode kernel's bound on splits per row
 CTAS_PER_SM = 8     # decode CTAs aimed at per SM when every row is full
+H100_SMS = 132      # H100 SXM5's SMs: the dry run's split schedule
 
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                     + [ctypes.c_float, ctypes.c_void_p])
@@ -111,43 +115,65 @@ _SCHEDULES = {}
 
 
 def _schedule(device, nb: int, block: int, rows: int):
-    """``split_schedule`` on ``device``'s SM count, kept per shape: the
-    decode loop calls it with the same shape every step."""
+    """``split_schedule`` on ``device``'s SM count (a meta device: an
+    H100 SXM5's), kept per shape: the decode loop calls it with the same
+    shape every step."""
     key = (device, nb, block, rows)
     if key not in _SCHEDULES:
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        n_sm = H100_SMS if device.type == "meta" else \
+            torch.cuda.get_device_properties(device).multi_processor_count
         _SCHEDULES[key] = split_schedule(nb, block, rows, n_sm)
     return _SCHEDULES[key]
 
 
-def _tickets(device, n: int) -> torch.Tensor:
+def paged_decode_work(B, H, K, dh, nb, visible, itemsize=2):
+    """(operations, bytes) of one decode call over ``visible`` K/V
+    positions in all (the rows' visible lengths summed): 4 dh a query head
+    and position (q.k and p.v), q read and the output written once, the
+    tables and lens, each visible K and V row read once."""
+    nbytes = (2 * B * H * dh * itemsize + B * nb * 4 + B * 4
+              + visible * K * dh * itemsize * 2)
+    return 4 * H * dh * visible, nbytes
+
+
+def paged_append_work(B, K, dh, rows, itemsize=2):
+    """(operations, bytes) of one append of ``rows`` kept rows: each kept
+    row's new K and V read and written once, the block ids and offsets
+    read."""
+    return 0, 2 * 2 * rows * K * dh * itemsize + 2 * B * 4
+
+
+def _tickets(store, device, n: int) -> torch.Tensor:
     """The decode kernel's per-(row, KV head) tickets on ``device``: int32
-    zeros, which every launch leaves at zero.  Made once per device (and
-    again when a call needs more)."""
-    t = _TICKETS.get(device)
+    zeros, which every launch leaves at zero.  Made once per device in
+    ``store`` (``_TICKETS``; a dry run's own, ``build.dry_kept``), and
+    again when a call needs more."""
+    t = store.get(device)
     if t is None or t.numel() < n:
-        t = _TICKETS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                           device=device)
+        t = store[device] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
     return t
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-def _cuda_checks(name, bf16s, ints, head_dim):
+def _cuda_checks(name, bf16s, ints, head_dim, device="cuda"):
+    """The kernel's conditions on its inputs, every one on ``device``
+    ("meta" on the dry run's route)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head_dim {HEAD_DIMS}, "
                          f"not {head_dim}")
     for label, t in bf16s:
-        if not t.is_cuda or t.dtype != torch.bfloat16 \
+        if t.device.type != device or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} kernel wants contiguous, 16-byte "
-                             f"aligned bf16 CUDA {label}; got {t.dtype} on "
-                             f"{t.device}")
+                             f"aligned bf16 {device} {label}; got {t.dtype} "
+                             f"on {t.device}")
     for label, t in ints:
-        if not t.is_cuda or t.dtype != torch.int32 \
+        if t.device.type != device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
-            raise ValueError(f"{name} kernel wants contiguous int32 CUDA "
+            raise ValueError(f"{name} kernel wants contiguous int32 {device} "
                              f"{label}; got {t.dtype} on {t.device}")
 
 
@@ -166,19 +192,31 @@ def paged_decode(q, k_pool, v_pool, tables, lens, *, window: int = 0):
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pool, v_pool, tables, lens,
                                   window=window)
+    dry = build.on_meta("paged_decode", q)
     build.refuse_autograd("paged_decode", q, k_pool, v_pool)
     if H // K > 8:
         raise ValueError(f"paged_decode kernel takes at most 8 query heads "
                          f"per KV head, not {H // K}")
     _cuda_checks("paged_decode",
                  (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)),
-                 (("tables", tables), ("lens", lens)), dh)
+                 (("tables", tables), ("lens", lens)), dh,
+                 "meta" if dry else "cuda")
     nb = tables.shape[1]
     span, splits = _schedule(q.device, nb, block, B * K)
     out = torch.empty_like(q)
     part = torch.empty(B * K * splits * (H // K) * (dh + 2),
                        dtype=torch.float32, device=q.device)
-    tickets = _tickets(q.device, B * K)
+    store = build.dry_kept() if dry else _TICKETS
+    had = store.get(q.device)
+    tickets = _tickets(store, q.device, B * K)
+    if dry:
+        # lens is a meta value: every row counted at the table's capacity
+        # (clipped by the window), an upper bound on the kernel's work
+        cap = nb * block
+        build.tally("paged_decode", paged_decode_work(
+            B, H, K, dh, nb, B * (min(cap, window) if window else cap)),
+            out, part, *(() if tickets is had else (tickets,)))
+        return out
     fn = build.function("paged_attention", "paged_decode", _DECODE_ARGTYPES)
     err = build.launch(q.device, fn, q.data_ptr(), k_pool.data_ptr(),
                        v_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(),
@@ -208,11 +246,17 @@ def paged_append(k_pool, v_pool, k_new, v_new, block_ids, offsets):
     if k_pool.device.type == "cpu":
         return paged_append_plain(k_pool, v_pool, k_new, v_new, block_ids,
                                   offsets)
+    dry = build.on_meta("paged_append", k_pool)
     build.refuse_autograd("paged_append", k_pool, v_pool, k_new, v_new)
     _cuda_checks("paged_append",
                  (("k_pool", k_pool), ("v_pool", v_pool), ("k_new", k_new),
                   ("v_new", v_new)),
-                 (("block_ids", block_ids), ("offsets", offsets)), dh)
+                 (("block_ids", block_ids), ("offsets", offsets)), dh,
+                 "meta" if dry else "cuda")
+    if dry:
+        # the ids are meta values: every row counted as kept, the bound
+        build.tally("paged_append", paged_append_work(B, K, dh, B))
+        return k_pool, v_pool
     fn = build.function("paged_attention", "paged_append", _APPEND_ARGTYPES)
     err = build.launch(k_pool.device, fn, k_new.data_ptr(), v_new.data_ptr(),
                        k_pool.data_ptr(), v_pool.data_ptr(),

@@ -9,7 +9,10 @@ CPU tensor goes to ``wkv6_plain``; a CUDA tensor launches
 ``csrc/wkv6.cu`` (r, k, v bf16, w f32, head size 16 or 64), which
 reads the inputs through their strides with 16-byte asynchronous copies:
 every input must start on a 16-byte boundary and every stride of r, k, v
-(w) must be a multiple of 8 (4) elements, or the wrapper raises.
+(w) must be a multiple of 8 (4) elements, or the wrapper raises.  Inside
+``build.dry_run()`` a meta tensor takes the dry run's route: the CUDA
+path's checks and outputs on meta, its work (``wkv6_work``) tallied,
+nothing launched.
 """
 from __future__ import annotations
 
@@ -41,6 +44,18 @@ def wkv6_plain(r, k, v, w, u, state0=None):
     out = (torch.stack(outs, dim=1) if outs else
            torch.zeros(B, 0, H, v.shape[-1], dtype=F32, device=r.device))
     return out, S
+
+
+def wkv6_work(B, T, H, dh, state_in: bool):
+    """(f32 operations, bytes) of one call: per (b, t, h) w*S + k v^T (a
+    multiply and an FMA) and r.S (an FMA) on dh^2 state elements, 5
+    operations each, and the u term v_j * sum_i r_i u_i k_i with its add,
+    5 a head lane; r, k, v (bf16), w and the output (f32) once, u, the
+    state out (and in)."""
+    n = B * T * H * dh
+    return (n * (5 * dh + 5),
+            n * (3 * 2 + 4 + 4) + H * dh * 4
+            + (1 + state_in) * B * H * dh * dh * 4)
 
 
 def _check(r, k, v, w, u, state0) -> None:
@@ -99,13 +114,18 @@ def wkv6(r, k, v, w, u, state0=None):
     _check(r, k, v, w, u, state0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, state0)
-    if r.device.type != "cuda":
+    dry = build.on_meta("wkv6", r)
+    if not dry and r.device.type != "cuda":
         raise ValueError(f"wkv6: unsupported device {r.device}")
     build.refuse_autograd("wkv6", r, k, v, w, u, state0)
     _cuda_checks(r, k, v, w, u, state0)
     B, T, H, dh = r.shape
     out = torch.empty(B, T, H, dh, dtype=F32, device=r.device)
     s_T = torch.empty(B, H, dh, dh, dtype=F32, device=r.device)
+    if dry:
+        build.tally("wkv6", wkv6_work(B, T, H, dh, state0 is not None),
+                    out, s_T)
+        return out, s_T
     fn = build.function("wkv6", "wkv6", _ARGTYPES)
     err = build.launch(r.device, fn, r.data_ptr(), k.data_ptr(),
                        v.data_ptr(), w.data_ptr(), u.data_ptr(),

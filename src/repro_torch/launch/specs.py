@@ -78,10 +78,12 @@ def _batch_pspecs(cfg: ModelConfig, batch_sds, env: ShardingEnv):
     return tree_map_with_path(spec, batch_sds)
 
 
-def input_specs(cfg: ModelConfig, shape_name: str, env: ShardingEnv):
+def input_specs(cfg: ModelConfig, shape_name: str, env: ShardingEnv,
+                info=None):
     """Returns dict(kind, args=(meta tensors...), in_shardings,
-    out_shardings, donate_argnums) for the cell's step function."""
-    info = SHAPES[shape_name]
+    out_shardings, donate_argnums) for the cell's step function; ``info``
+    (seq, batch, kind) replaces ``SHAPES[shape_name]``."""
+    info = info or SHAPES[shape_name]
     S, B, kind = info["seq"], info["batch"], info["kind"]
     param_sh = lm.param_shardings(cfg, env)
 

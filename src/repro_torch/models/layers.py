@@ -110,6 +110,10 @@ def paged_kv_update(k_pool, v_pool, k_new, v_new, block_ids, offsets):
 # ---------------------------------------------------------------------------
 # training: blocked attention and the chunked scan, under autograd
 # ---------------------------------------------------------------------------
+# the training attention's modes, the reference's ``attn_mode``
+ATTN_MODES = ("full", "tri")
+
+
 def _pick_block(S: int, target: int) -> int:
     if S <= target:
         return S
@@ -119,9 +123,19 @@ def _pick_block(S: int, target: int) -> int:
     return b
 
 
-def _attn_q_block(q, k, v, i, qb, kb, causal, window):
-    """Query block i over every key block (mode="full": each pair, masked):
-    the online softmax of the reference's ``_chunked_attention_bwd_safe``.
+def _visible(i, j, qb, kb, causal, window) -> bool:
+    """Whether query block i sees any key of key block j (the reference's
+    ``_visible`` at q_offset 0)."""
+    if causal and j * kb > i * qb + qb - 1:
+        return False
+    return not (window and i * qb - (j * kb + kb - 1) >= window)
+
+
+def _attn_q_block(q, k, v, i, qb, kb, causal, window, mode="full"):
+    """Query block i over every key block (mode="full": each pair, masked)
+    or over the blocks it sees (mode="tri": the causal triangle or the
+    window's band, ``_visible``): the online softmax of the reference's
+    ``_chunked_attention_bwd_safe``.
     Scores are bf16 products summed in f32; m, l and acc are f32; p is
     rounded to v's type before P.V; ``torch.minimum`` / ``maximum`` split
     the gradient at a tie as ``jnp.minimum`` / ``maximum`` do.  Returns
@@ -136,6 +150,8 @@ def _attn_q_block(q, k, v, i, qb, kb, causal, window):
     acc = torch.zeros(B, H, qb, Dv, dtype=F32, device=dev)
     zero = torch.zeros((), dtype=F32, device=dev)
     for j in range(Sk // kb):
+        if mode == "tri" and not _visible(i, j, qb, kb, causal, window):
+            continue
         kj = k[:, j * kb:(j + 1) * kb].float()
         vj = v[:, j * kb:(j + 1) * kb]
         s = torch.einsum("bqhd,bshd->bhqs", qi, kj) * (1.0 / math.sqrt(D))
@@ -160,20 +176,24 @@ def _attn_q_block(q, k, v, i, qb, kb, causal, window):
 
 def chunked_attention_train(q, k, v, *, causal: bool = True,
                             window: int = 0, q_block: int = 512,
-                            kv_block: int = 512):
+                            kv_block: int = 512, mode: str = "full"):
     """The training attention, twin of the reference's
     ``_chunked_attention_bwd_safe`` (``repro/models/layers.py:244``): a
     Python loop over query blocks, each under ``torch.utils.checkpoint`` so
     the backward recomputes its scores instead of keeping (Sq, Sk) of
     them.  q (B, Sq, H, D); k, v (B, Sk, H, D|Dv), already expanded to H
-    heads.  Returns (B, Sq, H, Dv) in q's type."""
+    heads; ``mode`` "full" (every block pair, masked) or "tri" (the
+    visible pairs only: the same result, fewer FLOPs).  Returns (B, Sq, H,
+    Dv) in q's type."""
     B, Sq, H, D = q.shape
     if k.shape[2] != H:
         raise ValueError("expand_kv before chunked_attention_train")
+    if mode not in ATTN_MODES:
+        raise ValueError(f"attention mode {mode!r}: takes {ATTN_MODES}")
     qb = _pick_block(Sq, q_block)
     kb = _pick_block(k.shape[1], kv_block)
     outs = [checkpoint(_attn_q_block, q, k, v, i, qb, kb, causal, window,
-                       use_reentrant=False) for i in range(Sq // qb)]
+                       mode, use_reentrant=False) for i in range(Sq // qb)]
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
 
 
@@ -391,27 +411,30 @@ def _gqa_qkv_local(x, p, cfg, positions, env):
             _global(v, env, shape, [bt, None, None, None]))
 
 
-def _attend(q, k, v, *, causal, train, attn_block, window=0):
+def _attend(q, k, v, *, causal, train, attn_block, window=0,
+            attn_mode="full"):
     """Prefill through ``flash_prefill``, or with ``train`` the blocked
-    training attention over ``expand_kv``'d K/V, as the reference's
-    ``bwd_safe`` route expands them."""
+    training attention over ``expand_kv``'d K/V (in ``attn_mode``), as the
+    reference's ``bwd_safe`` route expands them."""
     if not train:
         return flash_prefill(q, k, v, causal=causal, window=window)
     H = q.shape[2]
     return chunked_attention_train(q, expand_kv(k, H), expand_kv(v, H),
                                    causal=causal, window=window,
-                                   q_block=attn_block, kv_block=attn_block)
+                                   q_block=attn_block, kv_block=attn_block,
+                                   mode=attn_mode)
 
 
 def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
                        kv_override=None, train: bool = False,
-                       attn_block: int = 512, env=None):
+                       attn_block: int = 512, attn_mode: str = "full",
+                       env=None):
     """Full-sequence attention: prefill through the flash kernel, or with
     ``train`` through ``chunked_attention_train`` (blocks of
-    ``attn_block``).  ``kv_override`` (k, v), each (B, Sk, K, dh): a
-    cross-attention's keys and values, taken as they are (no rope), while
-    q is roped at ``positions``, as the reference does; the projections it
-    replaces are not computed.  Returns (y, k, v).
+    ``attn_block``, in ``attn_mode``).  ``kv_override`` (k, v), each (B,
+    Sk, K, dh): a cross-attention's keys and values, taken as they are (no
+    rope), while q is roped at ``positions``, as the reference does; the
+    projections it replaces are not computed.  Returns (y, k, v).
 
     On a mesh: each rank runs ``flash_prefill`` (with ``train``,
     ``chunked_attention_train``) on its q rows and heads
@@ -439,7 +462,7 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
                                _local(v, env, qw[0], None, None, None),
                                h0, Hl, H)
         y = _global(_attend(q, kk, vv, causal=causal, train=train,
-                            attn_block=attn_block,
+                            attn_block=attn_block, attn_mode=attn_mode,
                             window=cfg.sliding_window),
                     env, (B, S, H, dh), qw)
         if env.opts.get("rs_matmul") and env.heads_shardable(H):
@@ -450,7 +473,8 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
     else:
         q, (k, v) = gqa_q(x, p, cfg, positions), kv_override
     y = _attend(q, k, v, causal=causal, train=train,
-                attn_block=attn_block, window=cfg.sliding_window)
+                attn_block=attn_block, attn_mode=attn_mode,
+                window=cfg.sliding_window)
     return torch.einsum("bshx,hxd->bsd", y, p["wo"]), k, v
 
 
@@ -689,7 +713,8 @@ _MLA_Q = ("wdq", "q_ln", "wdkv", "kv_ln")
 
 
 def mla_attention_full(x, p, cfg, positions, *, train: bool = False,
-                       attn_block: int = 512, env=None):
+                       attn_block: int = 512, attn_mode: str = "full",
+                       env=None):
     """Prefill MLA: the latent expanded to per-head keys and values, k's
     rope part shared by the H heads, causal attention through
     ``flash_prefill`` (with ``train``, ``chunked_attention_train``) at
@@ -709,15 +734,16 @@ def mla_attention_full(x, p, cfg, positions, *, train: bool = False,
         ckv, k_rope = _mla_latent(xl, lp, cfg, positions)
         q, k, v = _mla_heads(xl, lp, cfg, positions, ckv, k_rope)
         y = _global(_attend(q, k, v, causal=True, train=train,
-                            attn_block=attn_block), env,
-                    (B, S, cfg.n_heads, cfg.v_head_dim), hw)
+                            attn_block=attn_block, attn_mode=attn_mode),
+                    env, (B, S, cfg.n_heads, cfg.v_head_dim), hw)
         rows = [hw[0], None, None]
         return (_out_proj(y, p["wo"], env, hw, "bshv,hvd->bsd"),
                 _global(ckv, env, (B, S, ckv.shape[-1]), rows),
                 _global(k_rope, env, (B, S, k_rope.shape[-1]), rows))
     ckv, k_rope = _mla_latent(x, p, cfg, positions)
     q, k, v = _mla_heads(x, p, cfg, positions, ckv, k_rope)
-    y = _attend(q, k, v, causal=True, train=train, attn_block=attn_block)
+    y = _attend(q, k, v, causal=True, train=train, attn_block=attn_block,
+                attn_mode=attn_mode)
     return torch.einsum("bshv,hvd->bsd", y, p["wo"]), ckv, k_rope
 
 
@@ -881,7 +907,11 @@ def _dispatch(top_p, top_e, e_start: int, e_local: int, capacity: int):
     loc_e = torch.where(local, flat_e - e_start, e_local)
     order = torch.sort(loc_e, stable=True).indices
     s_e, s_t, s_p = loc_e[order], flat_t[order], flat_p[order]
-    counts = torch.bincount(s_e, minlength=e_local + 1)
+    # each local expert's pairs (and the overflow's), counted into a fixed
+    # (e_local + 1,) tensor: the same counts as ``bincount`` (s_e <=
+    # e_local), with a static shape that a meta tensor can carry
+    counts = torch.zeros(e_local + 1, dtype=s_e.dtype, device=dev
+                         ).index_add_(0, s_e, torch.ones_like(s_e))
     pos = torch.arange(s_e.shape[0], device=dev) \
         - (torch.cumsum(counts, 0) - counts)[s_e]
     keep = (pos < capacity) & (s_e < e_local)

@@ -69,7 +69,8 @@ import sys
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -271,8 +272,18 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
     """The params' tree of shapes and types with nothing allocated (meta
     tensors): what a checkpoint restore rebuilds, as the reference's
-    ``abstract_params`` (``jax.eval_shape`` of ``init_params``)."""
-    return init_params(cfg, 0, device="meta")
+    ``abstract_params`` (``jax.eval_shape`` of ``init_params``).  Built
+    outside any dispatch mode the caller has open (``_shapes_only``)."""
+    with _shapes_only():
+        return init_params(cfg, 0, device="meta")
+
+
+def _shapes_only():
+    """A block whose meta stand-ins describe shapes, not data: the dispatch
+    modes a caller has open (a dry run's memory and FLOP counters) do not
+    see them, as a card's allocator never sees a meta tensor."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    return _disable_current_modes()
 
 
 def params_from_jax(tree, device="cuda"):
@@ -620,8 +631,9 @@ def _xent_mean(tot, cnt, env, axes):
 
 # the keys of the reference's ``env.opts`` that its training path reads on
 # one device ("sp" and "moe_impl" change nothing without a mesh)
-TRAIN_OPTS = {"attn_block": 512, "loss_chunk": 512, "remat": False,
-              "remat_policy": None}
+TRAIN_OPTS = {"attn_block": 512, "attn_mode": "full", "loss_chunk": 512,
+              "remat": False, "remat_policy": None}
+REMAT_POLICIES = (None, "full", "dots")
 
 
 def train_opts(opts=None) -> Dict[str, Any]:
@@ -631,9 +643,13 @@ def train_opts(opts=None) -> Dict[str, Any]:
         raise ValueError(f"forward_train takes the options {sorted(out)}, "
                          f"not {sorted(unknown)}")
     out.update(opts or {})
-    if out["remat_policy"] is not None:
-        raise NotImplementedError(f"remat_policy {out['remat_policy']!r}: "
-                                  f"only whole-layer remat is ported")
+    if out["remat_policy"] not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {out['remat_policy']!r}: takes "
+                         f"{REMAT_POLICIES} (None and 'full' whole-layer "
+                         f"remat, 'dots' the matmuls' outputs saved)")
+    if out["attn_mode"] not in L.ATTN_MODES:
+        raise ValueError(f"attn_mode {out['attn_mode']!r}: takes "
+                         f"{L.ATTN_MODES}")
     return out
 
 
@@ -645,18 +661,42 @@ def mesh_train_opts(env) -> Dict[str, Any]:
     return train_opts({k: env.opts[k] for k in TRAIN_OPTS if k in env.opts})
 
 
+# the ops whose outputs ``remat_policy="dots"`` saves: the matmuls, the
+# aten forms of the reference's ``dot_general`` (einsum and matmul lower
+# to them)
+DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                     torch.ops.aten.addmm.default,
+                     torch.ops.aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def _maybe_remat(fn, opts):
-    """``fn`` under ``torch.utils.checkpoint`` where ``opts["remat"]`` (the
-    reference's ``_maybe_remat`` without a policy)."""
+    """``fn`` under ``torch.utils.checkpoint`` where ``opts["remat"]``,
+    the reference's ``_maybe_remat``: the whole layer recomputed in the
+    backward, or under ``remat_policy="dots"`` all but the matmuls, whose
+    outputs are kept (the twin of ``jax.checkpoint_policies.
+    checkpoint_dots``)."""
     if not (opts and opts["remat"]):
         return fn
-    return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw)
+    kw = {"context_fn": _dots_context} if opts["remat_policy"] == "dots" \
+        else {}
+    return lambda *a, **k: checkpoint(fn, *a, use_reentrant=False, **kw,
+                                      **k)
 
 
 def _attn_kw(opts):
     """The attention functions' training keywords (none for inference)."""
     return {} if opts is None else {"train": True,
-                                    "attn_block": opts["attn_block"]}
+                                    "attn_block": opts["attn_block"],
+                                    "attn_mode": opts["attn_mode"]}
 
 
 # ===========================================================================
@@ -1111,9 +1151,10 @@ def forward_train(params, batch, cfg: ModelConfig, env=None, *,
     (enc-dec: ``frames``, ``tgt_tokens``, ``tgt_labels``).  The twin of the
     reference's ``forward_train`` (``repro/models/lm.py:595``).  On one
     device ``opts`` takes ``TRAIN_OPTS``' keys (``attn_block``,
-    ``loss_chunk``, ``remat``).  On a mesh (``_train_sharded``) the
-    options come from ``env.opts``, as the reference's do, and ``opts``
-    must be None.  No kernel is launched: the kernels have no backward."""
+    ``attn_mode``, ``loss_chunk``, ``remat``, ``remat_policy``).  On a mesh
+    (``_train_sharded``) the options come from ``env.opts``, as the
+    reference's do, and ``opts`` must be None.  No kernel is launched: the
+    kernels have no backward."""
     check_family(cfg)
     if L.on_mesh(env):
         if opts is not None:
@@ -1142,9 +1183,9 @@ def _train_sharded(params, batch, cfg, env):
     tensors every rank holds whole (or DTensors), the layers on each
     rank's shards at the reference's constraint points (``env.opts``:
     ``sp``, ``fsdp``, ``moe_impl``, ``rs_matmul``, ``remat``,
-    ``attn_block``, ``loss_chunk``), the loss ``chunked_xent`` on the
-    mesh, equal on every rank and seeded with its share
-    (``sharding.rank_share``).  The gradients land in the params'
+    ``attn_block``, ``attn_mode``, ``loss_chunk``), the loss
+    ``chunked_xent`` on the mesh, equal on every rank and seeded with its
+    share (``sharding.rank_share``).  The gradients land in the params'
     ``.grad`` as DTensors laid out as the params."""
     opts = mesh_train_opts(env)
     params = SH.copies(params)
@@ -1241,9 +1282,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=BF16,
 
 def abstract_cache(cfg, batch, max_len, dtype=BF16, src_len=None):
     """The cache's tree of shapes and types with nothing allocated (meta
-    tensors), as the reference's ``jax.eval_shape`` of ``init_cache``."""
-    return init_cache(cfg, batch, max_len, dtype, device="meta",
-                      src_len=src_len)
+    tensors, outside the caller's dispatch modes: ``_shapes_only``), as
+    the reference's ``jax.eval_shape`` of ``init_cache``."""
+    with _shapes_only():
+        return init_cache(cfg, batch, max_len, dtype, device="meta",
+                          src_len=src_len)
 
 
 def cache_pspecs(cfg: ModelConfig, env: ShardingEnv, batch: int,
@@ -1454,9 +1497,12 @@ def _decode_logits(params, x, cfg, env):
 
 
 def decode_positions(pos, x, cache):
-    """``decode_step``'s ``pos`` (an int or (B,)) as (B,) int32 on x's
-    device, asserted below the self-attention cache's ``max_len`` where the
-    cache has one ("k", or MLA's "ckv")."""
+    """``decode_step``'s ``pos`` (an int or (B,); on a mesh also a
+    DTensor, taken whole, as the reference's step takes it laid out) as
+    (B,) int32 on x's device, asserted below the self-attention cache's
+    ``max_len`` where the cache has one ("k", or MLA's "ckv")."""
+    if _is_dtensor(pos):
+        pos = SH.whole(pos)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device
                           ).broadcast_to((x.shape[0],)).contiguous()
     seq = cache.get("k", cache.get("ckv"))

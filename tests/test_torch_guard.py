@@ -176,6 +176,78 @@ def test_wrappers_raise_on_devices_they_do_not_take():
         flash_prefill(q, q, q)
 
 
+def _meta_calls():
+    """Each wrapper's call on meta inputs the kernel takes, and the
+    shapes and types its CUDA path returns."""
+    from repro_torch.kernels.flash_attention.ops import flash_prefill
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.paged_attention.ops import (paged_append,
+                                                         paged_decode)
+    from repro_torch.kernels.rwkv6.ops import wkv6
+
+    def m(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    pool = m(3, 16, 2, 16)
+    return [
+        ("flash_prefill", lambda: flash_prefill(m(1, 8, 2, 16),
+                                                m(1, 8, 1, 16),
+                                                m(1, 8, 1, 16)),
+         [((1, 8, 2, 16), bf16)]),
+        ("paged_decode", lambda: paged_decode(
+            m(2, 4, 16), pool, pool, m(2, 1, dtype=i32), m(2, dtype=i32)),
+         [((2, 4, 16), bf16)]),
+        ("paged_append", lambda: paged_append(
+            pool, pool, m(2, 2, 16), m(2, 2, 16), m(2, dtype=i32),
+            m(2, dtype=i32)),
+         [((3, 16, 2, 16), bf16), ((3, 16, 2, 16), bf16)]),
+        ("wkv6", lambda: wkv6(m(1, 4, 2, 16), m(1, 4, 2, 16),
+                              m(1, 4, 2, 16), m(1, 4, 2, 16, dtype=f32),
+                              m(2, 16, dtype=f32)),
+         [((1, 4, 2, 16), f32), ((1, 2, 16, 16), f32)]),
+        ("mamba_scan", lambda: mamba_scan(
+            m(1, 4, 32), m(1, 4, 32), m(1, 4, 8), m(1, 4, 8),
+            m(32, 8, dtype=f32), m(32, dtype=f32)),
+         [((1, 4, 32), f32), ((1, 32, 8), f32)]),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5), ids=lambda i: [
+    "flash_prefill", "paged_decode", "paged_append", "wkv6",
+    "mamba_scan"][i])
+def test_wrappers_take_meta_only_inside_a_dry_run(case):
+    """Inside ``build.dry_run()`` a wrapper given meta tensors returns
+    meta tensors of its CUDA path's shapes and types, tallies one call and
+    launches nothing; outside it, a meta tensor raises as before."""
+    from repro_torch.kernels import build
+    name, call, want = _meta_calls()[case]
+    with build.dry_run() as tally:
+        out = call()
+    outs = out if isinstance(out, tuple) else (out,)
+    assert [(tuple(t.shape), t.dtype) for t in outs] == want
+    assert all(t.device.type == "meta" for t in outs)
+    assert list(tally) == [name] and tally[name]["calls"] == 1
+    assert tally[name]["bytes"] > 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+
+
+def test_dry_run_module_sets_up_no_process_group():
+    """Importing ``launch.dryrun`` (the guard's import scan covers it)
+    sets up no process group: its fake world is made by ``main``."""
+    code = ("import torch.distributed as dist\n"
+            "import repro_torch.launch.dryrun\n"
+            "print(dist.is_initialized())\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == ["False"]
+    assert "repro_torch.launch.dryrun" in MODULES
+
+
 def test_wrappers_cpu_branch_stays_differentiable():
     """On a CPU tensor each wrapper runs its plain version, which autograd
     follows: a backward through it gives every input a finite gradient

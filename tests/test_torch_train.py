@@ -291,15 +291,16 @@ def test_restore_reads_a_compressed_checkpoint():
 
 
 def test_forward_train_refuses_options_it_does_not_port():
-    """The reference's "dots" remat policy is not ported, and a key its
-    one-device training path does not read is refused."""
+    """A remat policy other than None, "full" and "dots" (the ones the
+    reference's dry run names) is refused, and so is a key its one-device
+    training path does not read."""
     cfg = get_config("micro")
     params = lm.init_params(cfg, 0, device="cpu")
     toks = torch.zeros(1, 8, dtype=torch.long)
     batch = {"tokens": toks, "labels": toks}
-    with pytest.raises(NotImplementedError, match="remat_policy"):
+    with pytest.raises(ValueError, match="remat_policy"):
         lm.forward_train(params, batch, cfg,
-                         opts={"remat": True, "remat_policy": "dots"})
+                         opts={"remat": True, "remat_policy": "offload"})
     with pytest.raises(ValueError, match="options"):
         lm.forward_train(params, batch, cfg, opts={"unroll_layers": True})
 
