@@ -161,10 +161,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    attention output detached before ``wo`` (planted); ``train_loop`` for
    12 AdamW steps at lr 3e-4 launches no kernel, and its last loss is
    below its first (step time, tokens a second, peak memory, one profiled
-   step); 6 steps with a checkpoint at step 6 in a temporary directory,
-   then a fresh ``train_loop(resume=True)``: the state restored bit-equal
-   to the saving run's, batch 6's tokens first, steps 6-11's losses equal
-   to the uninterrupted run's (or within 1e-3 relative).  12 steps, not
+   step); then at depth 4 (for time: the full depth's checkpoint is 35.9
+   GiB), 12 steps, and 6 steps with a checkpoint at step 6 in a temporary
+   directory and a fresh ``train_loop(resume=True)``: the state restored
+   bit-equal to the saving run's, batch 6's tokens first, steps 6-11's
+   losses equal to the 12 steps' (or within 1e-3 relative).  12 steps, not
    8: at full width AdamW's first steps raise the loss on this stream,
    the reference's as the port's (``tools/train_wide_parity.py``), and
    it falls below step 0's from step 8.  Then the ten tiny
@@ -193,12 +194,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    state: 4 thread-ranks (``launch.mesh.threaded_world``) on a
    ("data", "model") mesh of (2, 2) on "cuda" with the dry run's default
    options, every rank computing on its shards on the one card.
-   llama3.2-3b at full width and depth (seed 0): the one-device
-   ``lm.prefill`` (B=2 x 1024, max_len 1040) and 16 greedy
+   llama3.2-3b at full width, depth cut from 28 to 8 (seed 0): the
+   one-device ``lm.prefill`` (B=2 x 1024, max_len 1040) and 16 greedy
    ``lm.decode_step``s, then the params distributed by
    ``param_shardings``, the sharded prefill and 16 sharded steps
-   teacher-forced with the one-device tokens (exactly 112 flash_prefill,
-   1,792 each of paged_append and paged_decode: 4 ranks x 28 layers);
+   teacher-forced with the one-device tokens (exactly 32 flash_prefill,
+   512 each of paged_append and paged_decode: 4 ranks x 8 layers);
    every step's logits within ``TOL_SHARDED`` of the largest logit of the
    one-device step's, the greedy picks equal or parted at a near-tie; a
    planted fault (rank 1 reading the other model shard's kv heads) must
@@ -220,21 +221,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``train_loop`` for 4 AdamW steps each way (losses and gnorms), a
    checkpoint at step 2 saved from the mesh and restored on the mesh and
    on one device (bit-equal); mixtral-8x22b (depth 2, EP, no pair
-   dropped), rwkv6-7b (depth 1 in bf16; depth 4 in f32 with ln_x's
-   output unrounded, beside the one-device gradients' own spread when
-   the params move by one f32 ulp), jamba (one superblock; planted: its
-   conv taken on the sequence shard) and seamless-m4t (4 + 4): the loss
-   and every gradient leaf of one step.  No kernel is launched (all five
+   dropped), rwkv6-7b (B=2 x 256; depth 1 in bf16; depth 2 in f32 with
+   ln_x's output unrounded, beside the one-device gradients' own spread
+   when the params move by one f32 ulp), jamba (one superblock, B=2 x
+   128; planted: its conv taken on the sequence shard) and seamless-m4t
+   (4 + 4): the loss and every gradient leaf of one step.  No kernel is launched (all five
    counted under their paths).  ``--sharded-train CARD --spread`` runs
    the spread study instead (PERF.md §6): rwkv6-7b in f32 with ln_x
-   rounded (depths 2 and 4) and unrounded (depth 2), jamba on two seeds.  Limits: ``TOL_SHARDED_LOSS``,
-   ``TOL_SHARDED_GRAD``, ``TOL_SHARDED_STEPS`` (PERF.md).
+   rounded (depths 2 and 4) and unrounded (depth 2), jamba on two
+   seeds.  Limits: ``TOL_SHARDED_LOSS``, ``TOL_SHARDED_GRAD``,
+   ``TOL_SHARDED_STEPS`` (PERF.md).
 16. The dry run held to the card, in a child process (``chip_smoke.py
    --dryrun CARD``) on one thread-rank (a (1, 1) mesh on "cuda"):
-   llama3.2-3b at full width and depth trained (B=2 x 1024, one step of
-   ``launch.train.make_train_step``: forward, backward, AdamW) under
-   ``remat_policy`` "full" and "dots", decoded (B=4, one step over an
-   8192-token cache) and jamba (depth 8) prefilled (B=2 x 1024).  Each
+   llama3.2-3b at full width, depth cut from 28 to 8, trained (B=2 x
+   1024, one step of ``launch.train.make_train_step``: forward,
+   backward, AdamW) under ``remat_policy`` "full" and "dots", at full
+   depth decoded (B=4, one step over an 8192-token cache) and jamba
+   (depth 8) prefilled (B=2 x 1024).  Each
    step measured on meta by the dry run's functions, then run on the card
    on seed-0 params laid out the same way: the predicted peak within
    ``TOL_DRYRUN_PEAK`` of ``max_memory_allocated``, the aten FLOPs equal,
@@ -249,6 +252,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    tallies (``flash_prefill_work``,
    ``paged_decode_work``, ``paged_append_work``, ``wkv6_work``,
    ``mamba_scan_work``).
+17. The examples on the card, in a child process (``chip_smoke.py
+   --examples CARD``): the eight ``examples/*_torch.py`` twins at the
+   reference's defaults.  serve_agents, serve_runtime, workflow_api and
+   serve_frontend serve micro on "cuda" in the child; their lines (but
+   the wall figure) held to those the reference's examples print
+   (``EXAMPLE_LINES``: token counts and virtual time, whatever the
+   weights; workflow_api's graph programs only, its dynamic agent
+   branches on token values), their launches exact where the run is in
+   virtual time (``EXAMPLE_LAUNCHES``; the dynamic agent's from its
+   printed step count), above 0 for serve_frontend, whose launches must
+   all come from AsyncServingDriver's worker thread on cuda:0.
+   train_small at its defaults but 100 steps (small-100m, B=4 x 128;
+   the default 200 cut on the command line, for time) with checkpoints
+   in a temporary directory: 100 finite losses, checkpoints at 50 and
+   100, then a resume from step 100 for 10 more steps; and on micro at
+   the same steps, where its loss falls (at the defaults it does not in
+   200 steps, the reference's example's neither).  quickstart,
+   cluster_sim and the multi-pod dry run (command-r-35b x decode_32k on
+   2x16x16: status ok, ``MULTIPOD_ARGUMENT_BYTES``) run as child
+   processes meanwhile.  Launches under "examples ..." paths.
    Phases 5-6 and 9-10 run through one ``serve_path``, with phases 5-6's
    forward on the prompt and prefill-vs-forward check.  Both phases run
    before a failed check ends the script; each counts its launches under
@@ -264,6 +287,7 @@ import contextlib
 import ctypes
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2358,6 +2382,9 @@ def text_engine(torch, np, card, wrappers, cfg, params):
 # package on the CPU the port's part by up to 4.4e-2, which
 # tests/test_torch_forward_train.py holds in f32 instead).
 TOL_RESTART = 1e-3
+# The restart runs at a cut depth: at 28 layers its checkpoint (params and
+# both moments in f32) is 35.9 GiB, ~90 s of disk a save and a restore
+RESTART_DEPTH = 4
 TRAIN_ARCHS = ["jamba_v0_1_52b", "deepseek_v2_236b", "mixtral_8x22b",
                "command_r_35b", "mistral_nemo_12b", "qwen3_32b",
                "llama3_2_3b", "llava_next_34b", "rwkv6_7b",
@@ -2413,10 +2440,11 @@ def train_llama(torch, np, card, fails):
     the path's only ones); every gradient leaf real, and not under a
     planted detach of the attention output; ``train_loop`` for 12 AdamW
     steps at lr 3e-4 (no kernel launched, the loss falling; step time,
-    tokens a second, peak memory, one profiled step); 6 steps with a
-    checkpoint at 6, and a fresh ``train_loop(resume=True)`` from it
-    (state bit-equal, batch 6's tokens, steps 6-11's losses).  Returns the
-    launches of the loss check."""
+    tokens a second, peak memory, one profiled step); then at depth
+    RESTART_DEPTH, 12 steps, and 6 steps with a checkpoint at 6 and a
+    fresh ``train_loop(resume=True)`` from it (state bit-equal, batch 6's
+    tokens, steps 6-11's losses those of the 12).  Returns the launches of
+    the loss check."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
@@ -2548,18 +2576,24 @@ def train_llama(torch, np, card, fails):
                      f"{rec['launches']}")
     if not losses[-1] < losses[0]:
         fails.append(f"train: the loss did not fall: {losses}")
-    whole_tokens = rec["tokens"]
 
+    arch = train_cfg("llama3.2-3b", RESTART_DEPTH).name
+    rec["tokens"] = []
+    with swapped(T, "SyntheticLM", recorded):
+        losses = T.train_loop(arch, **kw)[2]
+    whole_tokens = rec["tokens"]
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         rec["tokens"] = []
         t0 = time.perf_counter()
         with swapped(T, "SyntheticLM", recorded):
-            p4, o4, first = T.train_loop("llama3.2-3b", **{
+            p4, o4, first = T.train_loop(arch, **{
                 **kw, "steps": half}, ckpt_dir=d, ckpt_every=half)
         part = time.perf_counter() - t0
         size = sum(f.stat().st_size for f in Path(d).iterdir()) / 2**30
-        # the saving run's state stays on the card (29.5 GiB) until the
-        # restored one (as much again) is compared with it
+        # the saving run's state stays on the card until the restored one
+        # is compared with it
         saved = [state_items(p4, o4)]
         del p4, o4
         diff = []
@@ -2584,7 +2618,7 @@ def train_llama(torch, np, card, fails):
         rec["tokens"] = []
         with swapped(T, "SyntheticLM", recorded), \
                 swapped(ckpt, "restore_checkpoint", restore_checked):
-            resumed = T.train_loop("llama3.2-3b", **kw, ckpt_dir=d,
+            resumed = T.train_loop(arch, **kw, ckpt_dir=d,
                                    resume=True)[2]
     gc.collect()
     torch.cuda.empty_cache()
@@ -2594,8 +2628,10 @@ def train_llama(torch, np, card, fails):
     how = ("equal" if resumed == losses[half:] else
            f"within {gap:.3e} relative" if gap < TOL_RESTART else
            f"{gap:.3e} apart")
-    log(f"  restart [{card}]: {half} steps and a checkpoint ({size:.2f} GiB "
-        f"on disk) in {part:.1f} s, losses {[round(x, 4) for x in first]}; "
+    log(f"  restart at depth {RESTART_DEPTH} [{card}]: {steps} steps, losses "
+        f"{[round(x, 4) for x in losses]}; {half} steps and a checkpoint "
+        f"({size:.2f} GiB on disk) in {part:.1f} s, losses "
+        f"{[round(x, 4) for x in first]}; "
         f"restored in {rec['restore_s']:.1f} s, {len(diff)} leaves "
         f"differing from the saved state; first batch equal to batch "
         f"{half}: {same_batch}; steps {half}-{steps - 1} {resumed} against "
@@ -2997,6 +3033,7 @@ def layouts_main(card: str) -> int:
 SHARDED_MESH = (2, 2)
 SHARDED_B, SHARDED_S, SHARDED_STEPS = 2, 1024, 16
 SHARDED_DEPTH = 2                 # mixtral-8x22b: 56 layers cut to 2
+SHARDED_LLAMA_DEPTH = 8           # llama3.2-3b: 28 cut to 8 (for time)
 # The sharded run's logits against the one-device run's on the same
 # params and tokens, as the largest |difference| over the largest |logit|
 # (at least 1): the ranks round each partial product of the out-projection
@@ -3138,15 +3175,19 @@ def held_sharded(name, ref, got, fails):
 
 
 def sharded_llama(torch, card, wrappers, fails):
-    """llama3.2-3b at full width and depth: one-device prefill + 16 greedy
-    steps, then the sharded prefill + 16 steps teacher-forced with the
-    one-device tokens (exact launches), then the last step again with
-    rank 1 reading the wrong kv heads (planted: must break the limit)."""
+    """llama3.2-3b at full width, depth SHARDED_LLAMA_DEPTH: one-device
+    prefill + 16 greedy steps, then the sharded prefill + 16 steps
+    teacher-forced with the one-device tokens (exact launches), then the
+    last step again with rank 1 reading the wrong kv heads (planted: must
+    break the limit)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
-    cfg = get_config("llama3.2-3b")
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=SHARDED_LLAMA_DEPTH)
     params = ready(torch, lm, cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
@@ -3263,10 +3304,10 @@ def sharded_mixtral(torch, card, wrappers, fails):
 
 
 def sharded_main(card: str) -> int:
-    """Phase 13 in the child: llama3.2-3b and mixtral-8x22b (depth 2)
-    served on a (2, 2) mesh of thread-ranks against their one-device
-    runs.  Prints the launch counts by path on a line of their own; exit
-    0 only when every check held."""
+    """Phase 13 in the child: llama3.2-3b (depth 8) and mixtral-8x22b
+    (depth 2) served on a (2, 2) mesh of thread-ranks against their
+    one-device runs.  Prints the launch counts by path on a line of their
+    own; exit 0 only when every check held."""
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke --sharded: torch.cuda.is_available() is false")
@@ -3279,8 +3320,8 @@ def sharded_main(card: str) -> int:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
-        log("phase 13: llama3.2-3b (28 layers) on a (2, 2) mesh of thread-"
-            "ranks")
+        log(f"phase 13: llama3.2-3b (depth {SHARDED_LLAMA_DEPTH}) on a (2, 2) "
+            f"mesh of thread-ranks")
         by_path["sharded llama3.2-3b"] = sharded_llama(torch, card,
                                                        wrappers, fails)
         gc.collect()
@@ -3309,14 +3350,17 @@ def sharded_main(card: str) -> int:
 # k and v, seamless's self cache), which a step computes from its token's
 # embedding through one layer, are held to TOL_STATE, as paths A and B and
 # phase 10 hold theirs against the forward.  Seamless's cross caches are
-# projections of the whole encoder's output (24 layers deep, sharded as
-# the stack that makes the logits), so they are held to TOL_SHARDED: on
-# the first full run (NVIDIA H100 80GB HBM3, 700.00 W) they read 2.64e-2
-# of their largest magnitude beside the prefill's logits at 2.12e-2.
+# projections of the whole encoder's output (REST_ENCDEC[0] layers deep,
+# sharded as the stack that makes the logits), so they are held to
+# TOL_SHARDED: on the first run, at 24 + 24 (NVIDIA H100 80GB HBM3,
+# 700.00 W), they read 2.64e-2 of their largest magnitude beside the
+# prefill's logits at 2.12e-2.
 DEEP_STATES = ("cross_k", "cross_v")
 REST_B, REST_S, REST_STEPS = 2, 1024, 16
-REST_DEPTH = 8                    # rwkv6-7b 32, jamba 32, llama3.2-3b 28
+REST_DEPTH = 4                    # rwkv6-7b 32, llama3.2-3b 28 (for time)
+REST_JAMBA_DEPTH = 8              # jamba: one superblock of its 32
 REST_FRAMES, REST_TGT, REST_ENCDEC_STEPS = 1024, 256, 8
+REST_ENCDEC = (8, 8)              # seamless: of 24 + 24 (for time)
 REST_COUNTS = "SHARDED_REST_LAUNCHES "
 
 
@@ -3526,7 +3570,7 @@ def rest_launches(name, got, expect, wrappers, fails):
 
 
 def rest_rwkv(torch, card, wrappers, fails):
-    """rwkv6-7b at full width, depth 8: 32 of its 64 heads a rank.
+    """rwkv6-7b at full width, depth REST_DEPTH: 32 of its 64 heads a rank.
     Planted: rank 1 starts its decode from the other model shard's wkv
     heads."""
     import dataclasses
@@ -3568,7 +3612,7 @@ def rest_jamba(torch, card, wrappers, fails):
     from repro_torch.models.routing_replay import SameRouting
 
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
-                              n_layers=REST_DEPTH)
+                              n_layers=REST_JAMBA_DEPTH)
     params = ready(torch, lm, cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(16)
@@ -3609,16 +3653,22 @@ def rest_jamba(torch, card, wrappers, fails):
 
 
 def rest_seamless(torch, card, wrappers, fails):
-    """seamless-m4t-large-v2 at full width and depth (24 + 24): 1024
-    seeded frames (x 0.02), B=2, a 256-token target prompt, 8 steps; the
+    """seamless-m4t-large-v2 at full width, depth REST_ENCDEC (of 24 +
+    24): 1024 seeded frames (x 0.02), B=2, a 256-token target prompt, 8
+    steps; the
     vocabulary (256,206) over 'model' at tp 2.  Planted: in the step,
     rank 1 reads the kv heads of the other model shard's q heads (self and
     cross), as phase 13's fault."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
-    cfg = get_config("seamless-m4t-large-v2")
+    ne, nd = REST_ENCDEC
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              n_layers=ne + nd, n_enc_layers=ne,
+                              n_dec_layers=nd)
     params = ready(torch, lm, cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
@@ -3758,11 +3808,12 @@ class EngineHold:
 
 
 def rest_engine(torch, np, card, wrappers, fails):
-    """llama3.2-3b at full width, depth 8, in ``Engine(env=mesh)`` (4
-    slots over 'data', the pool's 8 kv heads 4 a rank, max_len 2048 in
-    blocks of 16) against the one-device engine on ``engine_script``:
-    ids equal (parted only at a near-tie, ``EngineHold``), host state
-    exact, every rank's pool replica byte-equal to its data peer's.
+    """llama3.2-3b at full width, depth REST_DEPTH, in
+    ``Engine(env=mesh)`` (4 slots over 'data', the pool's 8 kv heads 4 a
+    rank, max_len 2048 in blocks of 16) against the one-device engine on
+    ``engine_script``: ids equal (parted only at a near-tie,
+    ``EngineHold``), host state exact, every rank's pool replica
+    byte-equal to its data peer's.
     Planted: one data rank appends its own rows only (the gather of the
     new K/V over 'data' skipped), which must leave its replica unlike its
     peer's."""
@@ -3893,8 +3944,8 @@ def rest_engine(torch, np, card, wrappers, fails):
 
 
 def rest_main(card: str) -> int:
-    """Phase 14 in the child: rwkv6-7b (depth 8), jamba (depth 8),
-    seamless-m4t (full depth) and llama3.2-3b's engine (depth 8) served
+    """Phase 14 in the child: rwkv6-7b (depth 4), jamba (depth 8),
+    seamless-m4t (8 + 8) and llama3.2-3b's engine (depth 4) served
     on a (2, 2) mesh of thread-ranks against their one-device runs.
     Prints the launch counts by path on a line of their own; exit 0 only
     when every check held."""
@@ -3912,15 +3963,17 @@ def rest_main(card: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     for key, label, fn in (
             ("sharded rwkv6-7b", f"rwkv6-7b (depth {REST_DEPTH})", rest_rwkv),
-            ("sharded jamba", f"jamba-v0.1-52b (depth {REST_DEPTH})",
+            ("sharded jamba", f"jamba-v0.1-52b (depth {REST_JAMBA_DEPTH})",
              rest_jamba),
-            ("sharded seamless", "seamless-m4t-large-v2 (24 + 24 layers)",
-             rest_seamless)):
+            ("sharded seamless", "seamless-m4t-large-v2 ({} + {} layers)"
+             .format(*REST_ENCDEC), rest_seamless)):
         log(f"phase 14: {label} on a (2, 2) mesh of thread-ranks")
+        t_cell = time.perf_counter()
         with torch.no_grad():
             by_path[key] = fn(torch, card, wrappers, fails)
         gc.collect()
         torch.cuda.empty_cache()
+        log(f"  {key}'s wall {time.perf_counter() - t_cell:.1f} s [{card}]")
     log(f"phase 14: Engine(env=mesh), llama3.2-3b (depth {REST_DEPTH})")
     by_path["sharded engine llama3.2-3b"] = rest_engine(torch, np, card,
                                                         wrappers, fails)
@@ -3961,11 +4014,14 @@ TRAIN_DEPTH = {"llama3.2-3b": 4,          # of 28
                "mixtral-8x22b": 2,        # of 56
                "rwkv6-7b": 1,             # of 32 in bf16 (PERF.md)
                "jamba-v0.1-52b": 8}       # of 32: one superblock
-TRAIN_F32_DEPTH = 4                       # rwkv6-7b's f32 cell, of 32
+TRAIN_F32_DEPTH = 2                       # rwkv6-7b's f32 cell, of 32
 TRAIN_ENCDEC = (4, 4)                     # seamless: of 24 + 24
 TRAIN_FRAMES, TRAIN_TGT = 512, 128
 TRAIN_STEPS, TRAIN_SAVE = 4, 2
-TRAIN_PLANT_S = 128                       # jamba's planted fault: 2 x 128
+# the recurrences' rows cut for time (their scans under autograd are loops
+# over the sequence, each of 4 ranks' steps under one GIL): jamba's cell
+# 240 s at 512 on an NVIDIA H100 80GB HBM3 at 700 W
+TRAIN_SEQ = {"rwkv6-7b": 256, "jamba-v0.1-52b": 128}
 CHUNK = 1 << 24
 
 
@@ -4043,6 +4099,11 @@ class Collectives:
     def close(self):
         for name, fn in self.kept.items():
             setattr(self.cls, name, fn)
+
+
+def train_seq(name) -> int:
+    """The tokens a row of ``name``'s phase 15 cell."""
+    return TRAIN_SEQ.get(name, TRAIN_S)
 
 
 def train_batch(torch, cfg, seed, S=TRAIN_S):
@@ -4126,11 +4187,10 @@ def train_world(torch, cfg, held, batch, one, wrappers, plants=(),
     dropped); ``lm.forward_train`` and its backward timed apart with their
     collectives counted (after an unmeasured pair where ``warm``), the
     launches counted from 0; each leaf's gradient against ``one``'s
-    (``grad_errs``); each planted fault (name, put, take[, batch, one]:
-    rank 0 calls ``put()`` before and ``take()`` after the fault's forward
-    and backward, on ``batch`` against ``one`` where given) and its
-    gradients' errors; then ``after(env, rank)`` (its result under
-    "after").  Returns every rank's dict."""
+    (``grad_errs``); each planted fault (name, put, take: rank 0 calls
+    ``put()`` before and ``take()`` after the fault's forward and
+    backward) and its gradients' errors; then ``after(env, rank)`` (its
+    result under "after").  Returns every rank's dict."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_worker_mesh, threaded_world
     from repro_torch.models import lm
@@ -4172,18 +4232,17 @@ def train_world(torch, cfg, held, batch, one, wrappers, plants=(),
         if r == 0:
             out["launches"] = counts(wrappers)
         out["errs"], out["laid"] = grad_errs(torch, ps, one)
-        for name, put, take, *own in plants:
-            p_batch, p_one = own or (batch, one)
+        for name, put, take in plants:
             clear_grads(ps)
             sync()
             if r == 0:
                 put()
             sync()
-            lm.forward_train(ps, p_batch, cfg, env).backward()
+            lm.forward_train(ps, batch, cfg, env).backward()
             sync()
             if r == 0:
                 take()
-            out["plants"][name] = grad_errs(torch, ps, p_one)[0]
+            out["plants"][name] = grad_errs(torch, ps, one)[0]
         clear_grads(ps)
         del ps
         if after is not None:
@@ -4197,13 +4256,10 @@ def train_world(torch, cfg, held, batch, one, wrappers, plants=(),
         coll.close()
 
 
-def held_train(label, cfg, one, outs, fails, card, plant_leaves=None,
-               own=()):
+def held_train(label, cfg, one, outs, fails, card, plant_leaves=None):
     """The sharded loss (equal on every rank) and every gradient leaf
     against the one-device run's; each planted fault past the limit on
-    its leaves (all where None), against ``own``'s one-device run where
-    the faults ran on a batch of their own.  Logs the walls and the
-    collectives."""
+    its leaves (all where None).  Logs the walls and the collectives."""
     losses = [o["loss"] for o in outs]
     rel = abs(losses[0] - one["loss"]) / abs(one["loss"])
     errs = {n: max(o["errs"][n] for o in outs) / max(one["tops"][n], 1e-30)
@@ -4232,10 +4288,9 @@ def held_train(label, cfg, one, outs, fails, card, plant_leaves=None,
         f"s [{card}]; collectives a layer and rank: forward "
         f"{outs[0]['n_fwd'] / per:.1f}, backward "
         f"{outs[0]['n_bwd'] / per:.1f}")
-    p_one = own[1] if own else one
     for name, leaves in (plant_leaves or {}).items():
         got = {n: max(o["plants"][name][n] for o in outs)
-               / max(p_one["tops"][n], 1e-30) for n in p_one["tops"]}
+               / max(one["tops"][n], 1e-30) for n in one["tops"]}
         names = leaves or [max(got, key=got.get)]
         seen = max(got[n] for n in names)
         log(f"  planted fault, {name}: {seen:.3e} on {names} (must reach "
@@ -4364,12 +4419,11 @@ def host_spread(torch, a, b):
 
 
 def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
-               plant_leaves=None, plant_S=None, f32=None, depth=None):
+               plant_leaves=None, f32=None, depth=None):
     """One step's loss and gradients of ``name`` (phase 15's depth, or
-    ``depth``) on the mesh against one device: the MoE archs held to the
-    one-device run's picks and asserted to drop no pair.  The planted
-    faults run on a batch of ``plant_S`` tokens a row where given,
-    against one device on it.  With ``f32`` ("unrounded": rwkv6's ln_x
+    ``depth``; ``train_seq(name)`` tokens a row) on the mesh against one
+    device: the MoE archs held to the one-device run's picks and asserted
+    to drop no pair.  With ``f32`` ("unrounded": rwkv6's ln_x
     output left in f32 in both runs, ``ln_x_f32``; "rounded": as the port
     rounds it) every param is f32 in both runs, and the one-device
     gradients' own spread (the params moved by one f32 ulp, ``one_ulp``)
@@ -4385,7 +4439,7 @@ def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
     label = f"sharded train {name.split('-')[0]}"
     if f32:
         label += f" (f32, ln_x {f32}, depth {cfg.n_layers})"
-    batch = train_batch(torch, cfg, seed)
+    batch = train_batch(torch, cfg, seed, train_seq(name))
     params = ready(torch, lm, cfg)
     takes = []
     if f32:
@@ -4404,12 +4458,6 @@ def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
         log(f"  {label}: one device against itself with the params moved "
             f"by one f32 ulp: largest leaf error {spread[0]:.3e} "
             f"({spread[1]}) [{card}]")
-    own, p_routing = (), None
-    if plants and plant_S:
-        p_routing = SameRouting() if cfg.n_experts else None
-        p_batch = train_batch(torch, cfg, seed, plant_S)
-        own = (p_batch, train_one(torch, lm, cfg, params, p_batch,
-                                  p_routing))
     gc.collect()
     torch.cuda.empty_cache()
     held = {"params": params}
@@ -4426,23 +4474,21 @@ def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
         put()
         drops, undo = dropped_pairs(L)
         takes += [take, undo, routing.restore]
-        replay = p_routing or routing
-        plants = tuple((n, lambda p=p: (p(), replay.replay(rows=rows)), t)
+        plants = tuple((n, lambda p=p: (p(), routing.replay(rows=rows)), t)
                        for n, p, t in plants)
-    plants = tuple(plant + own for plant in plants)
     try:
         outs = train_world(torch, cfg, held, batch, one, wrappers, plants)
     finally:
         for take in takes:
             take()
     n = zero_launches(label, outs, fails)
-    held_train(label, cfg, one, outs, fails, card, plant_leaves, own)
+    held_train(label, cfg, one, outs, fails, card, plant_leaves)
     if routing:
         log(f"  {label}: router picks parted at near-ties {routing.flips}; "
             f"pairs dropped {sum(drops)} (must be 0)")
         if sum(drops):
             fails.append(f"{label}: moe_ep dropped {sum(drops)} pairs")
-    del one, outs, own
+    del one, outs
     gc.collect()
     torch.cuda.empty_cache()
     return n
@@ -4459,7 +4505,7 @@ def conditioning(torch, card, name, depth, seed):
     from repro_torch.models import lm
     from repro_torch.train.optimizer import tree_map
     cfg = dataclasses.replace(get_config(name), n_layers=depth)
-    batch = train_batch(torch, cfg, seed)
+    batch = train_batch(torch, cfg, seed, train_seq(name))
     params = lm.init_params(cfg, 0, "cuda")
     grads = []
     for tree in (params, tree_map(lambda t: t.float(), params)):
@@ -4623,9 +4669,10 @@ def spread_study(torch, card, wrappers):
     """``--spread``: how far the mesh's gradients part from one device's
     where the gradients are ill-conditioned.  rwkv6-7b in f32 at depths 2
     and 4 with its ln_x output rounded to bf16 (as the port does), and
-    at depth 2 unrounded (phase 15 runs depth 4 so), each beside one
-    device's own spread under a one-ulp move of the params; jamba (phase 15's cell without its planted fault) on
-    its seed twice and on a second seed.  Logs every reading against the
+    at depth 2 unrounded (phase 15's f32 cell), each beside one
+    device's own spread under a one-ulp move of the params; jamba (phase
+    15's cell without its planted fault) on its seed twice and on a
+    second seed.  Logs every reading against the
     limit; fails nothing."""
     readings = []
     for f32, depth in (("rounded", 2), ("rounded", 4), ("unrounded", 2)):
@@ -4642,7 +4689,7 @@ def spread_study(torch, card, wrappers):
 def sharded_train_main(card: str) -> int:
     """Phase 15 in the child: llama3.2-3b (depth 4: step 0, AdamW,
     checkpoints across meshes), mixtral-8x22b (depth 2), rwkv6-7b (depth
-    1 in bf16, depth 4 in f32), jamba (depth 8) and seamless-m4t (4 + 4)
+    1 in bf16, depth 2 in f32), jamba (depth 8) and seamless-m4t (4 + 4)
     trained on a (2, 2) mesh of thread-ranks against their one-device
     runs (``--spread``: ``spread_study`` instead).  Prints the launch
     counts by path on a line of their own; exit 0 only when every check
@@ -4672,23 +4719,26 @@ def sharded_train_main(card: str) -> int:
     if not only or "llama3.2-3b" in only:
         log(f"phase 15: llama3.2-3b (depth {TRAIN_DEPTH['llama3.2-3b']}) "
             f"trained on a (2, 2) mesh of thread-ranks")
+        t_cell = time.perf_counter()
         by_path["sharded train llama3.2-3b"] = sharded_train_llama(
             torch, card, wrappers, fails)
-    for key, name, seed, plants, leaves, plant_S in (
-            ("sharded train mixtral", "mixtral-8x22b", 21, (), None, None),
-            ("sharded train rwkv6-7b", "rwkv6-7b", 22, (), None, None),
+        log(f"  llama3.2-3b's cell wall {time.perf_counter() - t_cell:.1f} s "
+            f"[{card}]")
+    for key, name, seed, plants, leaves in (
+            ("sharded train mixtral", "mixtral-8x22b", 21, (), None),
+            ("sharded train rwkv6-7b", "rwkv6-7b", 22, (), None),
             ("sharded train jamba", "jamba-v0.1-52b", 23,
              (("jamba's conv taken on the sequence shard",
                *swap_in(M, "_causal_depthwise_conv", conv_on_shards)),),
-             {"jamba's conv taken on the sequence shard": None},
-             TRAIN_PLANT_S),
+             {"jamba's conv taken on the sequence shard": None}),
             ("sharded train seamless", "seamless-m4t-large-v2", 24, (),
-             None, None)):
+             None)):
         if only and name not in only:
             continue
         log(f"phase 15: {name} trained on the same mesh")
+        t_cell = time.perf_counter()
         by_path[key] = train_cell(torch, card, wrappers, fails, name, seed,
-                                  plants, leaves, plant_S)
+                                  plants, leaves)
         if name == "rwkv6-7b":             # why its cell is one layer deep
             conditioning(torch, card, name, 2, seed)
             log(f"phase 15: {name} in f32 (depth {TRAIN_F32_DEPTH}) on the "
@@ -4696,6 +4746,8 @@ def sharded_train_main(card: str) -> int:
             by_path[key + " f32"] = train_cell(
                 torch, card, wrappers, fails, name, seed, f32="unrounded",
                 depth=TRAIN_F32_DEPTH)
+        log(f"  {name}'s cell wall {time.perf_counter() - t_cell:.1f} s "
+            f"[{card}]")
     log(f"  phase 15 max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB [{card}]; wall "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4726,11 +4778,12 @@ def sharded_train_main(card: str) -> int:
 # again at once, and the two must give the same peak, FLOPs and bytes.
 TOL_DRYRUN_PEAK = 0.10
 DRYRUN_COUNTS = "DRYRUN_LAUNCHES "
-# (label, arch, depth or None, kind, batch, seq, remat policy)
+# (label, arch, depth or None, kind, batch, seq, remat policy); the train
+# cells' depth cut from 28 to 8 for time
 DRYRUN_CELLS = (
-    ("llama3.2-3b train full", "llama3.2-3b", None, "train", 2, 1024,
+    ("llama3.2-3b train full", "llama3.2-3b", 8, "train", 2, 1024,
      "full"),
-    ("llama3.2-3b train dots", "llama3.2-3b", None, "train", 2, 1024,
+    ("llama3.2-3b train dots", "llama3.2-3b", 8, "train", 2, 1024,
      "dots"),
     ("llama3.2-3b decode", "llama3.2-3b", None, "decode", 4, 8192, None),
     ("jamba prefill", "jamba-v0.1-52b", 8, "prefill", 2, 1024, None),
@@ -5019,6 +5072,370 @@ def dryrun_main(card: str) -> int:
     return 1 if fails else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the examples on the card
+# ---------------------------------------------------------------------------
+# In a child process (``--examples``): the eight ``examples/*_torch.py``
+# twins at the reference's own defaults on "cuda".  The serving twins run
+# in this process, their printed lines kept with the launch counts as each
+# line ended (``Printed``); quickstart, cluster_sim and the multi-pod dry
+# run (CPU and meta by nature) run in child processes of their own at the
+# same time.  The lines below count tokens and virtual time, so the weights
+# (the port's seeded init here) do not move them: they are the lines the
+# reference's examples print on the CPU, but the wall figure
+# (tests/test_torch_examples_serve.py and ..._workflow.py hold them there,
+# with the reference's params carried over), and so are the launches (on
+# the CPU the tests count the wrappers' calls, one launch a call here).
+EXAMPLES_COUNTS = "EXAMPLES_LAUNCHES "
+EXAMPLE_WALL = r"\d+\.\d+s wall"
+EXAMPLE_LINES = {
+    "serve_agents": [
+        "SAGA (workflow-atomic): prefilled=480 tokens (regenerated=96), "
+        "decoded=240 steps, cache hits=24, <wall>",
+        "request-level baseline: prefilled=1920 tokens (regenerated=1920), "
+        "decoded=240 steps, cache hits=0, <wall>",
+        "",
+        "prefill-work reduction: 4.00x (this is the mechanism behind the "
+        "paper's 1.64x TCT gain)"],
+    "serve_runtime": [
+        "SAGA (workflow-atomic): 12 sessions, tct_mean=4.07s (virtual), "
+        "regen=657 tokens, 112 batched rounds for 131 decoded tokens, "
+        "hits=35, steals=0, prefetch copies=0, <wall>",
+        "request-level baseline: 12 sessions, tct_mean=5.93s (virtual), "
+        "regen=4237 tokens, 124 batched rounds for 131 decoded tokens, "
+        "hits=0, steals=0, prefetch copies=0, <wall>"],
+    # the graph programs: the lines before the dynamic agent's header
+    "workflow_api": [
+        "== explicit-graph programs (retry loop declared + executed)",
+        "  fix-0: path=[0, 1, 2, 1, 2, 3]  <- retry taken",
+        "  fix-1: path=[0]",
+        "  fix-2: path=[0, 1, 2, 3]",
+        "  fix-3: path=[0, 1, 2, 3]",
+        "  fix-4: path=[0, 1, 2, 3]",
+        "  fix-5: path=[0, 1, 2, 3]",
+        "  cache hits 15 (delta-only resumes), regen 138 of 256 prefilled "
+        "tokens"],
+}
+EXAMPLE_DYNAMIC = "== dynamic-callback program (branches on decoded tokens)"
+# micro has 2 layers: a prefill is 2 flash launches, a batched decode round
+# 2 appends and 2 decodes (serve_agents: 240 + 240 steps, one session at a
+# time; serve_runtime: 112 + 124 rounds)
+EXAMPLE_LAUNCHES = {
+    "serve_agents": {"flash_prefill": 120, "paged_decode": 960,
+                     "paged_append": 960},
+    "serve_runtime": {"flash_prefill": 188, "paged_decode": 472,
+                      "paged_append": 472},
+    "workflow_api graph": {"flash_prefill": 46, "paged_decode": 86,
+                           "paged_append": 86},
+}
+MICRO_LAYERS = 2
+SERVE_KERNELS = ("flash_prefill", "paged_decode", "paged_append")
+# command-r-35b x decode_32k on the 2x16x16 mesh: rank 0's arguments, the
+# reference's own figure (tests/test_torch_examples_rest.py)
+MULTIPOD_ARGUMENT_BYTES = 2_166_636_564
+MULTIPOD_JSON = "build/dryrun/demo.command-r-35b.decode_32k.multi.json"
+# train_small's defaults but the checkpoints' directory (a temporary one)
+# and the steps (its default 200 cut to 100 on the command line, for the
+# smoke's time); then resumed for TRAIN_SMALL_MORE steps past its last
+# checkpoint
+TRAIN_SMALL_STEPS = 100
+TRAIN_SMALL_MORE = 10
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 17: ``examples_main`` in a child process; its output echoed,
+    its launch counts by path returned.  Fails unless the child exits 0."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--examples", card], timeout=400,
+                         stdout=subprocess.PIPE, text=True)
+    counts_ = None
+    for line in res.stdout.splitlines():
+        if line.startswith(EXAMPLES_COUNTS):
+            counts_ = json.loads(line[len(EXAMPLES_COUNTS):])
+        else:
+            log(line)
+    log(f"  phase 17 wall with the child's start "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if res.returncode or counts_ is None:
+        raise AssertionError(f"phase 17 (the examples on the card) failed: "
+                             f"exit {res.returncode}")
+    return counts_
+
+
+class Printed:
+    """stdout for an example: each line echoed, indented, and kept with the
+    launch counts as it ended (``at[i]``: the launches before line i was
+    printed)."""
+
+    def __init__(self, counts_):
+        self.counts, self.lines, self.at, self._part = counts_, [], [], ""
+        self.out = sys.stdout
+
+    def write(self, s):
+        self._part += s
+        *done, self._part = self._part.split("\n")
+        for line in done:
+            self.lines.append(line)
+            self.at.append(self.counts())
+            self.out.write(f"    | {line}\n")
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def example(name):
+    """The module ``examples/<name>_torch.py``."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, wrappers, name, argv, card):
+    """``main(argv)`` of a twin in this process: (printed lines, launches
+    as each ended, launches, what main returned)."""
+    reset(wrappers)
+    out = Printed(lambda: counts(wrappers))
+    log(f"  examples/{name}_torch.py {' '.join(argv)}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ret = example(name).main(argv)
+    torch.cuda.synchronize()
+    launches = counts(wrappers)
+    log(f"  {name}: wall {time.perf_counter() - t0:.1f} s [{card}]; "
+        f"launches {launches}")
+    return out.lines, out.at, launches, ret
+
+
+def no_wall(lines):
+    import re
+    return [re.sub(EXAMPLE_WALL, "<wall>", line) for line in lines]
+
+
+def held_lines(name, got, want, fails):
+    if got != want:
+        fails.append(f"{name} printed {got}, not the reference's {want}")
+
+
+def held_launches(name, got, want, fails):
+    """The serving kernels' launches exactly ``want``; the scans' none."""
+    got = {k: n for k, n in got.items() if k in want or n}
+    if got != want:
+        fails.append(f"{name} launched {got}, not {want}")
+
+
+def example_children(tmp):
+    """quickstart, cluster_sim and the multi-pod dry run, each in a child
+    process (a session of its own, so that its children end with it) in a
+    directory of its own under ``tmp``, started at once."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = {}
+    for name in ("quickstart", "cluster_sim", "multipod_dryrun"):
+        cwd = Path(tmp) / name
+        cwd.mkdir()
+        procs[name] = (cwd, subprocess.Popen(
+            [sys.executable, str(root / "examples" / f"{name}_torch.py")],
+            cwd=cwd, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+    return procs
+
+
+def example_children_done(procs, card, fails, t0):
+    for name, (cwd, p) in procs.items():
+        out, _ = p.communicate(timeout=300)
+        log(f"  examples/{name}_torch.py (a child process): exit "
+            f"{p.returncode}, done {time.perf_counter() - t0:.1f} s after "
+            f"the phase began [{card}]")
+        for line in out.splitlines()[-8:]:
+            log(f"    | {line}")
+        if p.returncode:
+            fails.append(f"{name}_torch exited {p.returncode}")
+    path = procs["multipod_dryrun"][0] / MULTIPOD_JSON
+    if not path.exists():
+        fails.append(f"multipod_dryrun_torch wrote no {MULTIPOD_JSON}")
+        return
+    rec = json.loads(path.read_text())
+    got = (rec["status"], rec.get("mesh"),
+           rec.get("memory", {}).get("argument_bytes"))
+    log(f"  multipod cell: status {got[0]}, mesh {got[1]}, argument bytes "
+        f"{got[2]}, predicted peak {rec.get('memory', {}).get('peak_bytes')}"
+        f" bytes a card (meta), wall {rec.get('wall_s')} s [{card}]")
+    if got != ("ok", [2, 16, 16], MULTIPOD_ARGUMENT_BYTES):
+        fails.append(f"multipod_dryrun_torch's cell {got}, not ('ok', "
+                     f"[2, 16, 16], {MULTIPOD_ARGUMENT_BYTES})")
+
+
+def on_threads(torch, seen):
+    """The model's kernel wrappers, each wrapped to note the thread that
+    calls it, its first tensor's device and the thread's current CUDA
+    device; returns a function that puts them back."""
+    import threading
+
+    from repro_torch.models import layers
+    kept = []
+    for name in SERVE_KERNELS:
+        fn = getattr(layers, name)
+
+        def call(*a, _fn=fn, _name=name, **kw):
+            seen.add((_name, threading.current_thread().name,
+                      str(a[0].device), torch.cuda.current_device()))
+            return _fn(*a, **kw)
+        kept.append((name, fn))
+        setattr(layers, name, call)
+    return lambda: [setattr(layers, n, f) for n, f in kept]
+
+
+def examples_serving(torch, card, wrappers, fails, argv):
+    """The four serving twins on micro; launches by path."""
+    by_path = {}
+    for name in ("serve_agents", "serve_runtime"):
+        lines, _, got, _ = run_example(torch, wrappers, name, argv, card)
+        by_path[f"examples {name}"] = got
+        held_lines(name, no_wall(lines), EXAMPLE_LINES[name], fails)
+        held_launches(name, got, EXAMPLE_LAUNCHES[name], fails)
+
+    lines, at, got, _ = run_example(torch, wrappers, "workflow_api", argv,
+                                    card)
+    by_path["examples workflow_api"] = got
+    i = lines.index(EXAMPLE_DYNAMIC) if EXAMPLE_DYNAMIC in lines else None
+    if i is None:
+        fails.append("workflow_api printed no dynamic agent")
+    else:
+        held_lines("workflow_api", lines[:i], EXAMPLE_LINES["workflow_api"],
+                   fails)
+        held_launches("workflow_api's graph programs", at[i],
+                      EXAMPLE_LAUNCHES["workflow_api graph"], fails)
+        # the dynamic agent: a prefill a step, 3 tokens in the first step
+        # and 2 in each later one, one batched round a token
+        steps = int(lines[i + 1].split(": ")[1].split()[0])
+        rounds = 3 + 2 * (steps - 1)
+        held_launches("workflow_api's dynamic agent",
+                      {k: got[k] - at[i][k] for k in got},
+                      {"flash_prefill": MICRO_LAYERS * steps,
+                       "paged_decode": MICRO_LAYERS * rounds,
+                       "paged_append": MICRO_LAYERS * rounds}, fails)
+    if not lines or not lines[-1].endswith("across substrates: True"):
+        fails.append("workflow_api's graph took other paths on the "
+                     "simulator")
+
+    seen = set()
+    undo = on_threads(torch, seen)
+    try:
+        lines, _, got, _ = run_example(torch, wrappers, "serve_frontend",
+                                       argv, card)
+    finally:
+        undo()
+    by_path["examples serve_frontend"] = got
+    if any(got[k] <= 0 for k in SERVE_KERNELS) \
+            or any(n for k, n in got.items() if k not in SERVE_KERNELS):
+        fails.append(f"serve_frontend launched {got}: each serving kernel "
+                     f"> 0, the scans none")
+    threads = sorted({(t, d, c) for _, t, d, c in seen})
+    log(f"  serve_frontend's launches by (thread, tensor device, current "
+        f"device): {threads}")
+    if not threads or any(not t.startswith("saga-engine") or d != "cuda:0"
+                          or c != 0 for t, d, c in threads):
+        fails.append(f"serve_frontend's kernels ran outside the engine's "
+                     f"worker thread or off cuda:0: {threads}")
+    if not lines or not lines[-1].endswith("conservation clean"):
+        fails.append("serve_frontend did not end conservation clean")
+    return by_path
+
+
+def examples_train(torch, card, wrappers, fails, argv, tmp):
+    """train_small at its defaults but TRAIN_SMALL_STEPS (small-100m, B=4
+    x 128, lr 1e-3, a checkpoint every 50), then resumed from its last
+    checkpoint
+    for TRAIN_SMALL_MORE steps; and on micro at the same steps and batch,
+    where the loss falls.  At the defaults it does not fall in 200 steps,
+    in the reference's example as in the port (PERF.md): 32,768 tokens
+    seen about three times each are not learned."""
+    from repro_torch.train import checkpoint as ckpt
+    by_path = {}
+    steps = ["--steps", str(TRAIN_SMALL_STEPS)]
+    ckdir = tmp / "train_small_ckpt"
+    torch.cuda.reset_peak_memory_stats()
+    _, _, got, losses = run_example(
+        torch, wrappers, "train_small",
+        [*argv, *steps, "--ckpt-dir", str(ckdir)], card)
+    by_path["examples train_small"] = got
+    saved = sorted(int(f.stem[5:]) for f in ckdir.glob("step_*.npz"))
+    log(f"  train_small: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{len(losses)} steps, peak "
+        f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB [{card}]; "
+        f"checkpoints at steps {saved}")
+    if len(losses) != TRAIN_SMALL_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        fails.append(f"train_small ran {len(losses)} steps or lost a "
+                     f"finite loss")
+    if saved != list(range(50, TRAIN_SMALL_STEPS + 1, 50)) \
+            or ckpt.latest_step(str(ckdir)) != TRAIN_SMALL_STEPS:
+        fails.append(f"train_small's checkpoints {saved}, latest "
+                     f"{ckpt.latest_step(str(ckdir))}")
+    more = TRAIN_SMALL_STEPS + TRAIN_SMALL_MORE
+    lines, _, got, again = run_example(
+        torch, wrappers, "train_small",
+        [*argv, "--steps", str(more), "--ckpt-dir", str(ckdir)], card)
+    by_path["examples train_small resumed"] = got
+    if f"[train] resumed from step {TRAIN_SMALL_STEPS}" not in lines \
+            or len(again) != TRAIN_SMALL_MORE \
+            or not all(math.isfinite(x) for x in again):
+        fails.append(f"train_small did not resume from step "
+                     f"{TRAIN_SMALL_STEPS} for {TRAIN_SMALL_MORE} steps")
+    _, _, got, micro = run_example(
+        torch, wrappers, "train_small",
+        [*argv, *steps, "--arch", "micro", "--ckpt-dir",
+         str(tmp / "train_micro_ckpt")], card)
+    by_path["examples train_small micro"] = got
+    first, last = (sum(micro[:10]) / 10, sum(micro[-10:]) / 10)
+    log(f"  train_small on micro: mean loss of the first ten steps "
+        f"{first:.4f}, of the last ten {last:.4f} [{card}]")
+    if not last < first:
+        fails.append(f"train_small's loss on micro did not fall: "
+                     f"{first} -> {last}")
+    return by_path
+
+
+def examples_main(card: str) -> int:
+    """Phase 17 in the child: the eight twins; prints the launch counts by
+    path on a line of their own; exit 0 only when every check held."""
+    import os
+    import signal
+    import tempfile
+
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --examples: torch.cuda.is_available() is false")
+        return 1
+    wrappers, fails = all_wrappers(), []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = example_children(tmp)
+        try:
+            argv = ["--device", "cuda"]
+            by_path = examples_serving(torch, card, wrappers, fails, argv)
+            by_path.update(examples_train(torch, card, wrappers, fails,
+                                          argv, Path(tmp)))
+            example_children_done(procs, card, fails, t0)
+        finally:
+            for _, p in procs.values():
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+    log(f"  phase 17 wall {time.perf_counter() - t0:.1f} s [{card}]")
+    print(EXAMPLES_COUNTS + json.dumps(by_path), flush=True)
+    for f in fails:
+        log(f"  FAILED: {f}")
+    return 1 if fails else 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5039,6 +5456,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(card)
+    marks = []                   # (phase, its start): the walls by phase
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+    mark("1")
     log(f"phase 1: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -5078,6 +5500,7 @@ def main() -> int:
     gen.manual_seed(0)
     gen_more = torch.Generator(device="cuda")   # the later-added shapes
     gen_more.manual_seed(1)
+    mark("2")
     log(f"phase 2: kernels vs plain versions on the card [{card}]")
     kernels = [flash_phase(torch, gen, gen_more),
                *paged_phase(torch, gen, gen_more),
@@ -5095,42 +5518,64 @@ def main() -> int:
     scan_rank_shapes(torch, gen_more, kernels[3], kernels[4])
     flash_width_shapes(torch, gen_more, kernels[0], FLASH_REST)
     paged_g1_shapes(torch, gen_more, kernels[1:3], PAGED_REST)
+    mark("3")
     log("phase 3: reference check on small inputs")
     reference_phase(torch, np)
     ssm_reference_phase(torch, np)
+    mark("4-4b")
     log("phase 4: main path (llama3.2-3b served)")
     by_path = main_path(torch, np, card)
+    mark("4c")
     log("phase 4c: serve_bench_torch's fingerprints on the card (micro)")
     by_path["serve_bench_torch micro"] = bench_phase(torch, card)
+    mark("4d")
     log("phase 4d: soak_bench_torch's soak on the card (micro)")
     by_path["soak_bench_torch micro"] = soak_phase(torch, card)
+    mark("5-6")
     by_path.update(ssm_paths(torch, np, card))
+    mark("7-8")
     by_path.update(moe_vlm_paths(torch, np, card))
+    mark("9-10")
     by_path.update(mla_encdec_paths(torch, np, card))
+    mark("11")
     log("phase 11: training (llama3.2-3b at full width and depth; the ten "
         "tiny families on the card against the CPU)")
     by_path.update(train_paths(torch, np, card))
+    mark("12")
     log("phase 12: production layouts (the sharding specs on DTensor "
         "meshes; a child process)")
     layouts_phase(card)
+    mark("13")
     log("phase 13: sharded serving (4 thread-ranks on the card; a child "
         "process)")
     by_path.update(sharded_phase(card))
+    mark("14")
     log("phase 14: sharded serving II (rwkv6-7b, jamba, seamless-m4t and the "
         "engine on 4 thread-ranks; a child process)")
     by_path.update(rest_phase(card))
+    mark("15")
     log("phase 15: sharded training (llama3.2-3b, mixtral-8x22b, rwkv6-7b, "
         "jamba and seamless-m4t on 4 thread-ranks; a child process)")
     by_path.update(sharded_train_phase(card))
+    mark("16")
     log("phase 16: the dry run held to the card (llama3.2-3b trained under "
         "both remat policies and decoded, jamba's prefill; a child "
         "process)")
     by_path.update(dryrun_phase(card))
+    mark("17")
+    log("phase 17: the examples on the card (the eight examples/*_torch.py "
+        "twins at the reference's defaults; a child process)")
+    by_path.update(examples_phase(card))
+    mark("")
+    log(f"walls by phase [{card}]: " + ", ".join(
+        f"{n} {b - a:.1f} s" for (n, a), (_, b) in zip(marks, marks[1:]))
+        + f"; phases 1-17 {marks[-1][1] - marks[0][1]:.1f} s")
     for rec in kernels:
         # the sharded training paths are listed with their zero launches
         rec["launches_by_path"] = {
             p: n[rec["name"]] for p, n in by_path.items()
-            if n[rec["name"]] or p.startswith(("sharded train", "dryrun"))}
+            if n[rec["name"]] or p.startswith(("sharded train", "dryrun",
+                                               "examples"))}
         rec["launches"] = sum(rec["launches_by_path"].values())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -5150,4 +5595,6 @@ if __name__ == "__main__":
         sys.exit(sharded_train_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dryrun"]:
         sys.exit(dryrun_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--examples"]:
+        sys.exit(examples_main(sys.argv[2]))
     sys.exit(main())

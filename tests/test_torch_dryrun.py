@@ -1,8 +1,9 @@
 """The port's dry run (``repro_torch.launch.dryrun``) against the
 reference's and against a real run:
 
-- every (arch x shape) cell's status on the 512-rank production mesh under
-  the reference's option sets: ``skip`` exactly where
+- every (arch x shape) cell's status on the 512-rank production meshes
+  (the single-pod 16x16 under the reference's option sets, the multi-pod
+  2x16x16 under its defaults): ``skip`` exactly where
   ``repro.launch.specs.cell_supported`` says so, ``error`` exactly where
   the reference's ``input_specs`` raises on its 512-device mesh (JAX in a
   child process with 512 host devices);
@@ -54,6 +55,8 @@ ROOT = Path(__file__).resolve().parents[1]
 OPTION_SETS = {"defaults": {}, "cache_2d": {"cache_2d": True},
                "serve_fullshard": {"serve_fullshard": True},
                "no_fsdp": {"fsdp": False}, "rs_matmul": {"rs_matmul": True}}
+# the option sets also held on the 2x16x16 multi-pod mesh
+MULTI_POD_SETS = {"defaults": {}}
 
 _REF_STATUS = """
 import functools, json, sys
@@ -67,9 +70,12 @@ abstract = lm.abstract_params
 cached = functools.lru_cache(maxsize=None)(
     lambda name: abstract(get_config(name)))
 lm.abstract_params = lambda cfg: cached(cfg.name)
-mesh = make_production_mesh()
 out = {}
-for key, opts in json.loads(sys.stdin.read()).items():
+for tag, sets in json.loads(sys.stdin.read()).items():
+  mesh = make_production_mesh(multi_pod=tag == "multi")
+  for key, opts in sets.items():
+    if tag == "multi":
+        key = "multi:" + key
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         for shape in specs.SHAPES:
@@ -88,13 +94,16 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def ref_status():
-    """The reference's status of every cell under each option set, from a
+    """The reference's status of every cell under each option set (on the
+    single-pod mesh; ``multi:<set>`` keys on the multi-pod one), from a
     child process with 512 host devices."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512",
                PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _REF_STATUS],
-                         input=json.dumps(OPTION_SETS), capture_output=True,
+                         input=json.dumps({"single": OPTION_SETS,
+                                           "multi": MULTI_POD_SETS}),
+                         capture_output=True,
                          text=True, env=env, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     return json.loads(res.stdout.strip().splitlines()[-1])
@@ -132,6 +141,23 @@ def test_every_cell_status_is_the_reference_s(key, world, ref_status):
     for k, v in got.items():
         a, s = k.split("|")[1:]
         assert (v == "skip") == (not jspecs.cell_supported(jget(a), s)[0])
+
+
+@pytest.mark.parametrize("key", list(MULTI_POD_SETS))
+def test_every_cell_status_on_the_multi_pod_mesh_is_the_reference_s(
+        key, ref_status):
+    """As above on the 2x16x16 ("pod", "data", "model") mesh, where
+    "data" spans the pods."""
+    with tmesh.fake_world(512):
+        mesh = tmesh.make_production_mesh(multi_pod=True, device_type="cpu")
+        got = {f"multi:{key}|{a}|{s}": port_status(a, s, mesh,
+                                                   MULTI_POD_SETS[key])
+               for a in ARCH_IDS for s in tspecs.SHAPES}
+    want = {k: v for k, v in ref_status.items()
+            if k.startswith(f"multi:{key}|")}
+    assert got == want
+    assert sum(v == "ok" for v in got.values()) > 0
+    assert got[f"multi:{key}|command-r-35b|decode_32k"] == "ok"
 
 
 def spec_local_bytes(spec):

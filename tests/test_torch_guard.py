@@ -14,7 +14,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "benchmarks" / name for name in (
-        "serve_bench_torch.py", "soak_bench_torch.py", "torch_common.py")]
+        "serve_bench_torch.py", "soak_bench_torch.py", "torch_common.py")] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")

@@ -1,13 +1,15 @@
-"""The port's copies of the reference's framework-free modules stay
-verbatim: each is the reference file with ``repro`` renamed to
-``repro_torch``, and nothing else."""
+"""The port's copies of the reference's framework-free modules, and of the
+two examples that import nothing else, stay verbatim: each is the
+reference file with ``repro`` renamed to ``repro_torch``, and nothing
+else."""
 from pathlib import Path
 
 import pytest
 
 pytest.importorskip("torch")
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 COPIES = (
     [f"configs/{p.name}" for p in sorted((SRC / "repro" / "configs")
                                          .glob("*.py"))]
@@ -39,3 +41,20 @@ def test_copy_is_verbatim(rel):
     assert "repro_torch" not in ref
     assert copy.replace("repro_torch", "repro") == ref, \
         f"src/repro_torch/{rel} drifted from src/repro/{rel}"
+
+
+# examples/<name>_torch.py: copies of examples/<name>.py
+EXAMPLE_COPIES = ("cluster_sim", "quickstart")
+
+
+def test_example_copy_list_covers_the_framework_free_examples():
+    assert len(EXAMPLE_COPIES) == 2
+
+
+@pytest.mark.parametrize("name", EXAMPLE_COPIES)
+def test_example_copy_is_verbatim(name):
+    ref = (ROOT / "examples" / f"{name}.py").read_text()
+    copy = (ROOT / "examples" / f"{name}_torch.py").read_text()
+    assert "repro_torch" not in ref
+    assert copy.replace("repro_torch", "repro") == ref, \
+        f"examples/{name}_torch.py drifted from examples/{name}.py"
