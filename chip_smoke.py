@@ -44,7 +44,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    over its cross cache (lens 1024); all also within ``TOL_ROW_STEPS``.
    Then phase 13's rank-local shapes (one row, half the heads a rank):
    flash at B=1 S=1024 H=12 K=4 and H=24 K=4 (window 4096), paged
-   append + decode over one gathered block of 1040 positions.
+   append + decode over one gathered block of 1040 positions.  Then
+   flash with a soft cap on the scores (``CAP_KERNEL``, from a generator
+   of its own: ``flash_capped_shapes``) at llama3.2-3b's prefill (causal,
+   and window 32), seamless's encoder and its cross-attention, against
+   ``flash_prefill_plain(cap=...)`` (TOL_BF16 and TOL_ROW_STEPS); the
+   kernel launched without the cap must fail them (planted); timed
+   beside the special-function units' floor (one tanh a visible pair)
+   and ``flex_attention`` with a tanh ``score_mod`` and a block mask (a
+   yardstick the port never calls; a child, ``--flex``, started in phase
+   1, compiles it meanwhile and times it after phase 18, when nothing
+   else runs on the card).
    Each kernel is timed with CUDA events beside its plain version, its
    bound and, for flash, ``scaled_dot_product_attention`` (a yardstick
    the port never calls); flash and paged decode also at the further
@@ -276,6 +286,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    forward on the prompt and prefill-vs-forward check.  Both phases run
    before a failed check ends the script; each counts its launches under
    its own path.
+18. Soft-capped attention (``attn_logit_softcap``; ``chip_smoke.py
+   --capped CARD`` runs it alone): llama3.2-3b at full width, depth cut
+   from 28 to 4 (B=1, a 1024-token prompt, cap 1.0) and
+   seamless-m4t-large-v2 at full width, 4 + 4 of its 24 + 24 layers (B=4,
+   1024 frames and 256 target tokens, cap 0.25), cut because the
+   kernels' one-bf16-step differences from the plain versions grow past
+   ``TOL_FORWARD`` at full depth, capped or not (``CAPPED_DEPTH``),
+   through ``lm.prefill`` and 4 greedy ``lm.decode_step``s (exactly 4
+   flash_prefill, 16 each of paged_append and paged_decode; 12, 16 and
+   32), held to the same run with the three attention wrappers swapped
+   for their plain versions (teacher-forced): prefill logits within
+   ``TOL_FORWARD``, the first layer of each cache entry ``TOL_STATE``,
+   each step's logits ``TOL_DECODE`` of the family; the capped prefill's
+   logits must part from the uncapped one's past ``TOL_FORWARD``.  The
+   decode is uncapped, as the reference's is, so it is not held to the
+   capped forward.
+``chip_smoke.py --sharded-train CARD --f32-checks`` (not in the default
+run) runs ROADMAP.md Queue 3's two checks in f32 (``f32_checks``).
 
 The second-to-last line is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Nothing falls back to the CPU: without
@@ -283,6 +311,7 @@ CUDA the script exits non-zero before any result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import gc
@@ -581,6 +610,216 @@ def flash_width_shapes(torch, gen, rec, cases=FLASH_WIDTH):
         sdpa_ms = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"  flash {shape} time {ms:.4f} ms (device {dev} ms)  plain "
             f"{plain_ms:.4f} ms  sdpa {sdpa_ms}  bound {bms:.4f} ms ({by})")
+
+
+# soft-capped attention (``cfg.attn_logit_softcap``): phase 2's cap on
+# std-1 inputs, whose scores have a standard deviation of about 1, so a
+# cap of 1 holds most of them on tanh's bend (the capped output moves by
+# 0.4 to 1.5 from the uncapped one at these shapes, far past TOL_BF16)
+CAP_KERNEL = 1.0
+FLASH_CAPPED = [   # label, B, Sq, Sk, H, K, D, causal, window; the first timed
+    ("llama3.2-3b", 1, 1024, 1024, 24, 8, 128, True, 0),
+    ("llama3.2-3b", 1, 1024, 1024, 24, 8, 128, True, 32),
+    ("seamless encoder", 4, 1024, 1024, 16, 16, 64, False, 0),
+    ("seamless cross-attention", 4, 256, 1024, 16, 16, 64, False, 0)]
+
+
+FLEX_WAIT = 240        # s: the wait for the flex child's timing
+FLEX_RESULT = "FLEX_CAPPED "
+
+
+def capped_inputs(torch, gen, cases=FLASH_CAPPED):
+    """q, k, v (bf16, std 1) for each of ``cases`` in turn, drawn from
+    ``gen``: the flash check and the flex child draw the same tensors."""
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda",  # noqa
+                                dtype=torch.float32).to(torch.bfloat16)
+    for label, B, Sq, Sk, H, K, D, causal, window in cases:
+        yield mk(B, Sq, H, D), mk(B, Sk, K, D), mk(B, Sk, K, D)
+
+
+def flex_main(card: str) -> int:
+    """``--flex``: the capped shapes' yardstick in a child that phase 1
+    starts, so that Inductor's import and compiles overlap phases 1-4.
+    ``torch.nn.attention.flex_attention``, compiled, with the cap as a
+    tanh ``score_mod`` and the mask as a block mask; causal and window
+    read from a captured tensor, so one compiled callable serves both
+    masks at a head width (it recompiles for a new width or length).  It
+    draws phase 2's capped inputs (``capped_inputs``, seed 2), compiles
+    and checks flex at each shape against ``flash_prefill_plain(cap=)``
+    (TOL_BF16), then waits for a line on stdin (sent after phase 18, when
+    nothing else runs on the card) before it times them: CUDA events, 20 calls after 3 warm-ups.  Prints
+    ``FLEX_CAPPED`` and a JSON list, one entry a shape with ``ms`` (None
+    and ``why`` where flex failed), as its last line."""
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --flex: torch.cuda.is_available() is false")
+        return 1
+    import torch._inductor.config as inductor
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.kernels.flash_attention import ops as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inductor.compile_threads = 1       # no pool of compile workers
+    cap = CAP_KERNEL
+    flags = torch.zeros(2, dtype=torch.int32, device="cuda")  # causal, window
+
+    def visible(b, h, qi, ki):
+        return (((flags[0] == 0) | (ki <= qi))
+                & ((flags[1] == 0) | (qi - ki < flags[1])))
+
+    def softcap(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    flex = torch.compile(flex_attention)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    runs, out = [], []
+    for case, (q, k, v) in zip(FLASH_CAPPED, capped_inputs(torch, gen)):
+        label, B, Sq, Sk, H, K, D, causal, window = case
+        entry = {"label": label, "window": window, "ms": None}
+        out.append(entry)
+        t0 = time.perf_counter()
+        try:
+            flags.copy_(torch.tensor([int(causal), window]))
+            mask = create_block_mask(visible, None, None, Sq, Sk,
+                                     device="cuda")
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            run = (lambda qt=qt, kt=kt, vt=vt, mask=mask: flex(
+                qt, kt, vt, score_mod=softcap, block_mask=mask,
+                enable_gqa=True))
+            got = run().transpose(1, 2)
+            torch.cuda.synchronize()
+            entry["compile_s"] = time.perf_counter() - t0
+            entry["max_abs_err"] = max_err(got, F.flash_prefill_plain(
+                q, k, v, causal=causal, window=window, cap=cap))
+            if not entry["max_abs_err"] < TOL_BF16:
+                raise AssertionError(f"flex parts from the plain version "
+                                     f"by {entry['max_abs_err']}")
+            runs.append((entry, run, flags.clone()))
+        except Exception as exc:        # the yardstick only
+            entry["why"] = (f"{type(exc).__name__}: "
+                            f"{str(exc).splitlines()[0][:160]}")
+    sys.stdin.readline()
+    for entry, run, fl in runs:
+        flags.copy_(fl)
+        entry["ms"] = timed(torch, run)
+    log(FLEX_RESULT + json.dumps(out))
+    return 0
+
+
+def start_flex(card: str):
+    """The ``--flex`` child (phase 1 starts it; ``flash_capped_shapes``
+    reads it)."""
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--flex", card],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def flex_times(proc) -> list:
+    """Tell the flex child to time, wait for it, echo its lines; its
+    entries by shape, or None each (and why) where it failed."""
+    t0 = time.perf_counter()
+    try:
+        text = proc.communicate("go\n", timeout=FLEX_WAIT)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text = proc.communicate()[0] + f"\n(no result in {FLEX_WAIT} s)"
+    res = None
+    for line in text.splitlines():
+        if line.startswith(FLEX_RESULT):
+            res = json.loads(line[len(FLEX_RESULT):])
+        elif line.strip():
+            log(f"  flex child: {line[:200]}")
+    log(f"  flex child: waited {time.perf_counter() - t0:.1f} s for it "
+        f"(exit {proc.returncode})")
+    return res or [{"ms": None, "why": f"the child gave no result (exit "
+                    f"{proc.returncode})"}] * len(FLASH_CAPPED)
+
+
+def flash_capped_shapes(torch, gen, rec, cases=FLASH_CAPPED):
+    """Flash prefill with the cap ``CAP_KERNEL`` against
+    ``flash_prefill_plain(cap=...)``, drawn from ``gen`` (its own, so the
+    earlier shapes' draws stay as they were): llama3.2-3b's prefill
+    (causal, and causal + window 32), seamless's encoder (non-causal) and
+    its cross-attention (256 queries over 1024 frames).  Checked with
+    ``check_long`` (TOL_BF16 and TOL_ROW_STEPS); the kernel launched
+    without the cap must part from the capped plain version (a planted
+    fault); each timed beside the plain version, the bound
+    (``flash_prefill_work`` with the cap: the larger of its operations and
+    bytes) with the special-function units' floor beside it (one tanh a
+    visible pair); ``library_ms``, ``flex_attention``, comes later
+    (``flex_rows``).  Added to ``rec``'s ``more_shapes`` and
+    ``max_abs_err``; returns those rows."""
+    from repro_torch.kernels.flash_attention import ops as F
+
+    cap = CAP_KERNEL
+    rows = []
+    for case, (q, k, v) in zip(cases, capped_inputs(torch, gen, cases)):
+        label, B, Sq, Sk, H, K, D, causal, window = case
+        run = lambda: F.flash_prefill(q, k, v, causal=causal,  # noqa
+                                      window=window, cap=cap)
+        out = run()
+        torch.cuda.synchronize()
+        ref = F.flash_prefill_plain(q, k, v, causal=causal, window=window,
+                                    cap=cap)
+        shape = (f"{label}: B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} "
+                 + ("causal" if causal else "non-causal")
+                 + (f" window={window}" if window else "") + f" cap={cap:g}")
+        errs = check_long(f"flash {shape}", out, ref)
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs["max_abs_err"])
+        moved = max_err(F.flash_prefill_plain(q, k, v, causal=causal,
+                                              window=window), ref)
+        uncapped = F.flash_prefill(q, k, v, causal=causal, window=window)
+        planted = {"max_abs_err": max_err(uncapped, ref),
+                   "row_err_bf16_steps": row_steps(uncapped, ref)}
+        log(f"  {shape}: the cap moves the plain output {moved:.3e}; "
+            f"planted, the kernel launched with cap 0 against the capped "
+            f"plain version: max_abs_err {planted['max_abs_err']:.3e}, "
+            f"{planted['row_err_bf16_steps']:.1f} bf16 steps")
+        if planted["max_abs_err"] < TOL_BF16 \
+                and planted["row_err_bf16_steps"] < TOL_ROW_STEPS:
+            raise AssertionError(f"flash {shape}: the kernel without its "
+                                 f"cap passes both limits")
+        del out, ref, uncapped
+        ms = timed(torch, run)
+        dev = device_ms(torch, run, "flash_prefill_kernel")
+        plain_ms = timed(torch, lambda: F.flash_prefill_plain(
+            q, k, v, causal=causal, window=window, cap=cap), iters=2,
+            warmup=1)
+        flops, nbytes = F.flash_prefill_work(B, Sq, Sk, H, K, D, D,
+                                             causal=causal, window=window,
+                                             cap=cap)
+        bms, by = bound(nbytes, flops)
+        sfu = sfu_floor_ms(torch, B * H * F.visible_pairs(Sq, Sk, causal,
+                                                          window))
+        row = {"shape": shape, "ms": ms, "device_ms": dev,
+               "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms,
+               "bound_by": by, "sfu_floor_ms": sfu, "cap_moves": moved,
+               "planted_cap_0": planted, **errs}
+        rows.append(row)
+        rec["more_shapes"].append(row)
+        log(f"  flash {shape} time {ms:.4f} ms (device {dev} ms)  plain "
+            f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by}); SFU floor "
+            f"{sfu:.5f} ms")
+        del q, k, v
+    return rows
+
+
+def flex_rows(rows, flex):
+    """``library_ms`` of ``flash_capped_shapes``' rows from the ``flex``
+    child, which by now has compiled and waits (main calls this after
+    phase 18, so the compiles cost the run no wall time)."""
+    for row, lib in zip(rows, flex_times(flex)):
+        row["library_ms"] = lib["ms"]
+        if lib["ms"] is None:
+            log(f"  flex_attention at {row['shape']}: none, {lib.get('why')}")
+        else:
+            log(f"  flex_attention (tanh score_mod, block mask) at "
+                f"{row['shape']}: {lib['ms']:.4f} ms (compiled in "
+                f"{lib['compile_s']:.1f} s; against the plain version "
+                f"{lib['max_abs_err']:.3e})")
 
 
 def paged_g1_shapes(torch, gen, recs, cases=None):
@@ -1686,9 +1925,11 @@ def profile_window(torch, np, srv, cfg, card: str):
 # limit sits between the two.
 TOL_FORWARD = 2e-2
 TOL_DECODE = {"ssm": 1.5e-1, "hybrid": 5e-2, "moe": 5e-2, "vlm": 1e-1,
-              "mla": 5e-2, "encdec": 2.5e-2}
+              "mla": 5e-2, "encdec": 2.5e-2, "dense": 5e-2}
 TOL_STATE = {"ssm": 2e-2, "hybrid": 1e-1, "moe": 2e-2, "vlm": 2e-2,
-             "mla": 2e-2, "encdec": 2e-2}
+             "mla": 2e-2, "encdec": 2e-2, "dense": 2e-2}
+# ("dense": llama3.2-3b's in phase 18, the uniform GQA decoder's limits,
+# mixtral's without its experts)
 MUST_MOVE_LOGITS = ("zero cache", "one lost state write", "zero self cache",
                     "zeroed cross cache", "cross cache from a causal encoder",
                     "cross query roped at pos - 1")
@@ -4419,7 +4660,7 @@ def host_spread(torch, a, b):
 
 
 def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
-               plant_leaves=None, f32=None, depth=None):
+               plant_leaves=None, f32=None, depth=None, cfg=None):
     """One step's loss and gradients of ``name`` (phase 15's depth, or
     ``depth``; ``train_seq(name)`` tokens a row) on the mesh against one
     device: the MoE archs held to the one-device run's picks and asserted
@@ -4427,7 +4668,8 @@ def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
     output left in f32 in both runs, ``ln_x_f32``; "rounded": as the port
     rounds it) every param is f32 in both runs, and the one-device
     gradients' own spread (the params moved by one f32 ulp, ``one_ulp``)
-    is logged beside the mesh's error."""
+    is logged beside the mesh's error.  ``cfg``: a config of ``name``'s
+    family to run instead of phase 15's (``name`` still sets the rows)."""
     import torch.distributed as dist
     from repro_torch.models import layers as L
     from repro_torch.models import lm
@@ -4435,10 +4677,11 @@ def train_cell(torch, card, wrappers, fails, name, seed, plants=(),
     from repro_torch.models.routing_replay import SameRouting
     from repro_torch.train.optimizer import tree_map
 
-    cfg = train_cfg(name, depth)
+    cfg = cfg or train_cfg(name, depth)
     label = f"sharded train {name.split('-')[0]}"
     if f32:
-        label += f" (f32, ln_x {f32}, depth {cfg.n_layers})"
+        ln_x = f", ln_x {f32}" if cfg.family == "ssm" else ""
+        label += f" (f32{ln_x}, depth {cfg.n_layers})"
     batch = train_batch(torch, cfg, seed, train_seq(name))
     params = ready(torch, lm, cfg)
     takes = []
@@ -4686,6 +4929,57 @@ def spread_study(torch, card, wrappers):
         log(f"  past a limit (a reading, not a failure here): {r}")
 
 
+def f32_checks(torch, np, card, wrappers):
+    """``--f32-checks``: ROADMAP.md Queue 3's two open checks, in f32 on
+    the card; logs each reading against its limit and fails nothing.
+
+    (a) Path A (phase 5) with every param of rwkv6-7b in f32 and ln_x's
+    output unrounded (``ln_x_f32``) in the decode and the forward alike:
+    its last decode step against its own forward, beside the bf16 path's
+    5.39e-2 of the largest logit.  The ``wkv6`` kernel takes bf16 r, k, v,
+    so this run takes its plain version (the same f32 recurrence) on the
+    card, in both.  (b) jamba's sharded gradients in f32 (phase 15's cell,
+    seed 23, its rows, no planted fault) beside one device's own spread
+    under a one-ulp move of the params.  Its superblock is cut to
+    ``attn_period`` 2 slots of full width, one mamba layer with its FFN
+    and the attention layer with its MoE (slot ``per // 2`` and
+    ``layer_is_moe``'s odd slot): a depth cut keeps whole superblocks of 8,
+    and one of them in f32 (~52 GiB of params) does not fit its gradients
+    beside it on 80 GB."""
+    import dataclasses
+    from repro_torch.configs import get_config, register
+    from repro_torch.kernels.rwkv6 import ops as RK
+    from repro_torch.models import lm
+    from repro_torch.models import rwkv as R
+    from repro_torch.train.optimizer import tree_map
+
+    readings = []
+    log(f"f32 check (a): rwkv6-7b path A in f32, ln_x unrounded, wkv6's "
+        f"plain version in the decode and the forward [{card}]")
+    cfg = get_config("rwkv6-7b")
+    params = tree_map(lambda t: t.float(), ready(torch, lm, cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    none = dict.fromkeys(wrappers, 0)
+    with swapped(R, "wkv6", lambda _: RK.wkv6_plain), \
+            swapped(R, "group_norm_heads", lambda _: ln_x_f32):
+        _, fails = serve_path(torch, np, card, wrappers, cfg, params, 4,
+                              none, none)
+    readings += fails
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"f32 check (b): jamba's sharded gradients in f32, superblock of 2 "
+        f"slots (mamba + FFN, attention + MoE) [{card}]")
+    base = get_config("jamba-v0.1-52b")
+    small = register(dataclasses.replace(
+        base, name=f"{base.name}-p2", attn_period=2, n_layers=2))
+    train_cell(torch, card, wrappers, readings, base.name, 23,
+               f32="rounded", cfg=small)
+    for r in readings:
+        log(f"  past a limit (a reading, not a failure here): {r}")
+
+
 def sharded_train_main(card: str) -> int:
     """Phase 15 in the child: llama3.2-3b (depth 4: step 0, AdamW,
     checkpoints across meshes), mixtral-8x22b (depth 2), rwkv6-7b (depth
@@ -4715,6 +5009,10 @@ def sharded_train_main(card: str) -> int:
     only = set(sys.argv[3:])         # cells by arch name; all where none
     if only == {"--spread"}:
         spread_study(torch, card, wrappers)
+        return 0
+    if only == {"--f32-checks"}:
+        import numpy as np
+        f32_checks(torch, np, card, wrappers)
         return 0
     if not only or "llama3.2-3b" in only:
         log(f"phase 15: llama3.2-3b (depth {TRAIN_DEPTH['llama3.2-3b']}) "
@@ -5436,6 +5734,196 @@ def examples_main(card: str) -> int:
     return 1 if fails else 0
 
 
+# ---------------------------------------------------------------------------
+# phase 18: soft-capped attention at full width
+# ---------------------------------------------------------------------------
+# llama3.2-3b (depth CAPPED_DEPTH, B=1, a 1024-token prompt) and
+# seamless-m4t-large-v2 (CAPPED_DEPTH encoder + decoder layers, B=4, 1024
+# frames and a 256-token target prefix), each with a cap on its attention
+# scores, through lm.prefill and CAPPED_STEPS greedy
+# lm.decode_steps (exact launches), held to the same run with flash_prefill,
+# paged_decode and paged_append swapped for their plain versions (teacher-
+# forced with the kernels' tokens): the prefill's logits within TOL_FORWARD,
+# the first layer of each cache entry within TOL_STATE and each step's
+# logits within TOL_DECODE of the family.  Not decode-vs-forward: the
+# reference decodes uncapped (repro/models/layers.py:310), so a capped
+# model's decode parts from its own forward there too, and the port keeps
+# token parity by doing the same.  The capped prefill's logits must move
+# from the uncapped one's past TOL_FORWARD (as MUST_MOVE_LOGITS' faults).
+# The caps: at random init the scores' standard deviation is set by the
+# widths (llama3.2-3b about 1.2, seamless about 0.4, from the 0.02 init),
+# and a cap near it puts them on tanh's bend.
+# The depth: the kernels part from their plain versions by at most one bf16
+# step of an attention output (phase 2), and a random-init stack grows that
+# with depth alike with and without a cap.  Kernels vs plain versions, the
+# prefill's logits, capped (uncapped): llama3.2-3b 1.34e-2 (1.34e-2) at 4
+# layers, 1.98e-2 (2.03e-2) at 8, 3.60e-2 (4.16e-2) at 28; seamless
+# 1.03e-2 (1.16e-2) at 4 + 4, 2.33e-2 (2.46e-2) at 24 + 24, its first
+# decoder layer's cross K/V 1.26e-2 and 3.46e-2 (NVIDIA H100 80GB HBM3,
+# 700 W).  Full depth passes TOL_FORWARD and TOL_STATE without a cap too,
+# so the phase runs where the limits hold the kernels, not the depth.
+CAPPED = {"llama3.2-3b": 1.0, "seamless-m4t-large-v2": 0.25}
+CAPPED_DEPTH = 4                  # of 28; seamless's of 24 + 24
+CAPPED_STEPS = 4
+CAPPED_S, CAPPED_TGT = 1024, 256
+
+
+def plain_kernels():
+    """The three attention wrappers of ``models.layers`` swapped for their
+    plain versions (on CUDA tensors: no kernel, no count)."""
+    from repro_torch.kernels.flash_attention import ops as F
+    from repro_torch.kernels.paged_attention import ops as P
+    from repro_torch.models import layers as L
+    stack = contextlib.ExitStack()
+    for name, plain in (("flash_prefill", F.flash_prefill_plain),
+                        ("paged_decode", P.paged_decode_plain),
+                        ("paged_append", P.paged_append_plain)):
+        stack.enter_context(swapped(L, name, lambda _, f=plain: f))
+    return stack
+
+
+def capped_run(torch, lm, cfg, params, batch, max_len, tokens=None):
+    """``lm.prefill`` then CAPPED_STEPS greedy ``lm.decode_step``s (fed
+    ``tokens`` where given): (the prefill's logits, its cache, each step's
+    logits, the tokens fed)."""
+    pos = batch["tgt_tokens" if cfg.enc_dec else "tokens"].shape[1]
+    with torch.no_grad():
+        last, cache = lm.prefill(params, batch, cfg, max_len=max_len)
+        first = _clone(cache)
+        tok, fed, steps = last.argmax(-1), [], []
+        for t in range(CAPPED_STEPS):
+            tok = tok if tokens is None else tokens[t]
+            fed.append(tok)
+            logits, cache = lm.decode_step(params, tok, cache, pos + t, cfg)
+            steps.append(logits)
+            tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return last, first, steps, fed
+
+
+def capped_cfg(name):
+    """``name`` at full width, cut to ``CAPPED_DEPTH`` (enc-dec: that many
+    encoder and decoder layers), uncapped."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if cfg.enc_dec:
+        return dataclasses.replace(cfg, n_layers=2 * CAPPED_DEPTH,
+                                   n_enc_layers=CAPPED_DEPTH,
+                                   n_dec_layers=CAPPED_DEPTH)
+    return dataclasses.replace(cfg, n_layers=CAPPED_DEPTH)
+
+
+def capped_path(torch, np, card, wrappers, name, expect):
+    """One model of phase 18 (see above); returns (launches, fails)."""
+    import dataclasses
+    from repro_torch.models import lm
+
+    fails = []
+    t0 = time.perf_counter()
+    plain_cfg = capped_cfg(name)
+    cfg = dataclasses.replace(plain_cfg, attn_logit_softcap=CAPPED[name])
+    hold, path = holder(cfg, fails), path_of(cfg)
+    params = ready(torch, lm, cfg)
+    if cfg.enc_dec:
+        B, S = 4, CAPPED_TGT
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(18)
+        frames = (torch.randn(B, CAPPED_S, cfg.d_model, generator=gen,
+                              device="cuda") * 0.02).to(torch.bfloat16)
+        batch = {"frames": frames, "tgt_tokens": torch.as_tensor(
+            np.random.RandomState(18).randint(1, cfg.vocab, size=(B, S)),
+            device="cuda")}
+    else:
+        B, S = 1, CAPPED_S
+        batch = {"tokens": torch.as_tensor(np.random.RandomState(18).randint(
+            1, cfg.vocab, size=(B, S)), device="cuda")}
+    max_len = S + CAPPED_STEPS
+    reset(wrappers)
+    last, first, steps, fed = capped_run(torch, lm, cfg, params, batch,
+                                         max_len)
+    launches = counts(wrappers)
+    log(f"  {name} capped at {CAPPED[name]:g}: launches (prefill + "
+        f"{CAPPED_STEPS} decode steps) {launches}")
+    if launches != expect:
+        fails.append(f"{name} capped: launches {launches}, expected "
+                     f"{expect}")
+    reset(wrappers)
+    with plain_kernels():
+        p_last, p_first, p_steps, _ = capped_run(torch, lm, cfg, params,
+                                                 batch, max_len, fed)
+    if any(counts(wrappers).values()):
+        fails.append(f"{name}: the plain run launched {counts(wrappers)}")
+    hold("capped prefill logits, kernels vs plain versions (relative)",
+         rel_err(last, p_last), TOL_FORWARD)
+    hold("capped prefill cache, first layer of each entry, kernels vs plain "
+         "versions", first_layer(state_errs(first, p_first, S)),
+         TOL_STATE[path])
+    for t, (a, b) in enumerate(zip(steps, p_steps)):
+        hold(f"decode step {t} logits, kernels vs plain versions "
+             f"(relative)", rel_err(a, b), TOL_DECODE[path])
+    with torch.no_grad():
+        u_last, _ = lm.prefill(params, batch, plain_cfg, max_len=max_len)
+    moved = rel_err(u_last, last)
+    log(f"  {name}: the uncapped prefill's logits part from the capped "
+        f"ones by {moved:.4e} of the largest logit (must pass "
+        f"{TOL_FORWARD:g}); greedy picks agree on "
+        f"{int((u_last.argmax(-1) == last.argmax(-1)).sum())}/{B} rows")
+    if not moved > TOL_FORWARD:
+        fails.append(f"{name}: the cap moved the logits only {moved}")
+    ok = all(bool(x.isfinite().all()) for x in (last, *steps))
+    if not ok or last.shape != (B, 1, cfg.vocab):
+        fails.append(f"{name}: logits {tuple(last.shape)}, finite {ok}")
+    log(f"  {name} capped [{card}]: wall {time.perf_counter() - t0:.1f} s")
+    del params, batch, last, first, steps, p_last, p_first, p_steps, u_last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, fails
+
+
+def capped_paths(torch, np, card):
+    """Phase 18: llama3.2-3b and seamless-m4t-large-v2 soft-capped, both
+    before a failed check ends the script.  Returns the launches by
+    path."""
+    wrappers = all_wrappers()
+    none = dict.fromkeys(wrappers, 0)
+    n = capped_cfg("llama3.2-3b").n_layers
+    sm = capped_cfg("seamless-m4t-large-v2")
+    ne, nd, st = sm.n_enc_layers, sm.n_dec_layers, CAPPED_STEPS
+    by_path, fails = {}, []
+    for name, expect in (
+            ("llama3.2-3b", {**none, "flash_prefill": n,
+                             "paged_append": st * n,
+                             "paged_decode": st * n}),
+            ("seamless-m4t-large-v2", {**none, "flash_prefill": ne + 2 * nd,
+                                       "paged_append": st * nd,
+                                       "paged_decode": 2 * st * nd})):
+        log(f"phase 18: {name} (full width, depth {CAPPED_DEPTH}) with "
+            f"attn_logit_softcap {CAPPED[name]:g}")
+        by_path[f"capped {name}"], f = capped_path(torch, np, card,
+                                                   wrappers, name, expect)
+        fails += f
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return by_path
+
+
+def capped_main(card: str) -> int:
+    """``--capped``: phase 18 alone."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke --capped: torch.cuda.is_available() is false")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    by_path = capped_paths(torch, np, card)
+    log(f"  phase 18 wall {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(by_path)}")
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5463,6 +5951,8 @@ def main() -> int:
     mark("1")
     log(f"phase 1: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda} python {sys.version.split()[0]}")
+    flex = start_flex(card)
+    atexit.register(lambda: flex.poll() is None and flex.kill())
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"  built {sorted(logs) or 'nothing (up to date)'} in "
@@ -5518,6 +6008,10 @@ def main() -> int:
     scan_rank_shapes(torch, gen_more, kernels[3], kernels[4])
     flash_width_shapes(torch, gen_more, kernels[0], FLASH_REST)
     paged_g1_shapes(torch, gen_more, kernels[1:3], PAGED_REST)
+    log(f"  phase 18's soft-capped attention (cap {CAP_KERNEL:g})")
+    gen_cap = torch.Generator(device="cuda")
+    gen_cap.manual_seed(2)
+    capped_rows = flash_capped_shapes(torch, gen_cap, kernels[0])
     mark("3")
     log("phase 3: reference check on small inputs")
     reference_phase(torch, np)
@@ -5566,10 +6060,18 @@ def main() -> int:
     log("phase 17: the examples on the card (the eight examples/*_torch.py "
         "twins at the reference's defaults; a child process)")
     by_path.update(examples_phase(card))
+    mark("18")
+    log("phase 18: soft-capped attention at full width (llama3.2-3b and "
+        "seamless-m4t-large-v2 with attn_logit_softcap, against the plain "
+        "versions)")
+    by_path.update(capped_paths(torch, np, card))
+    log("  phase 2's yardstick: flex_attention at the capped shapes, timed "
+        "by the child phase 1 started (compiled meanwhile)")
+    flex_rows(capped_rows, flex)
     mark("")
     log(f"walls by phase [{card}]: " + ", ".join(
         f"{n} {b - a:.1f} s" for (n, a), (_, b) in zip(marks, marks[1:]))
-        + f"; phases 1-17 {marks[-1][1] - marks[0][1]:.1f} s")
+        + f"; phases 1-18 {marks[-1][1] - marks[0][1]:.1f} s")
     for rec in kernels:
         # the sharded training paths are listed with their zero launches
         rec["launches_by_path"] = {
@@ -5597,4 +6099,8 @@ if __name__ == "__main__":
         sys.exit(dryrun_main(sys.argv[2]))
     if sys.argv[1:2] == ["--examples"]:
         sys.exit(examples_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--capped"]:
+        sys.exit(capped_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--flex"]:
+        sys.exit(flex_main(sys.argv[2]))
     sys.exit(main())

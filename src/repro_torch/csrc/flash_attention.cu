@@ -7,7 +7,13 @@
 // window qpos - kpos < window, both positions counted from 0; online softmax
 // with an f32 running max, sum and accumulator; the probabilities rounded to
 // bf16 before the P.V product, as the Pallas body does (p.astype(v.dtype)).
-// Rows that see no key give 0.
+// Rows that see no key give 0.  A nonzero cap soft-caps the scaled scores,
+// cap * tanh(s / cap) before the mask, as the reference's chunked_attention
+// applies cfg.attn_logit_softcap (src/repro/models/layers.py:204-205); the
+// accurate tanhf, since tanh.approx.f32 (about 2^-11 relative) would move a
+// logit by about cap * 5e-4.  The cap is a template flag (CAP): cap 0
+// launches the uncapped instance, which compiles as it did before the cap
+// existed.
 //
 // Layout: q (B, Sq, H, D), k (B, Sk, K, D), v (B, Sk, K, DV), out
 // (B, Sq, H, DV), all bf16 and contiguous.  (D, DV) is (16, 16), (64, 64),
@@ -272,13 +278,15 @@ __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D, int DV>
+// Without CAP, mul = scale * log2(e) and cap_log2 goes unused; with CAP,
+// mul = scale / cap and cap_log2 = cap * log2(e).
+template <int D, int DV, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
                      const __grid_constant__ CUtensorMap tmap_v,
                      const bf16* __restrict__ q, bf16* __restrict__ o,
                      int Sq, int Sk, int H, int K, int causal, int window,
-                     float scale_log2) {
+                     float mul, float cap_log2) {
   using C = Cfg<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -394,12 +402,19 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tmap_k,
     // key k0 + 8 i + col0 + e % 2
     const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wq0)
         || (window && wq0 + BQ - 1 - k0 >= window);
+    // the scores in log2 units: s * scale, or with the cap
+    // cap * tanh(s * scale / cap) taken to log2 here
+    if constexpr (CAP) {
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j)
+        sc[j] = cap_log2 * tanhf(sc[j] * mul);
+    }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = sc[4 * i + e] * scale_log2;
+        float x = CAP ? sc[4 * i + e] : sc[4 * i + e] * mul;
         if (edge) {
           const int qpos = row0 + 8 * (e / 2);
           const int kpos = k0 + 8 * i + col0 + e % 2;
@@ -536,10 +551,10 @@ CUresult encode_kv(CUtensorMap* map, EncodeTiled enc, const void* ptr, int B,
 constexpr int ERR_NO_ENCODE = -1;
 constexpr int ERR_ENCODE_BASE = -1000;
 
-template <int D, int DV>
+template <int D, int DV, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int K, int causal, int window, float scale,
-           cudaStream_t stream) {
+           float cap, cudaStream_t stream) {
   using C = Cfg<D, DV>;
   EncodeTiled enc = encode_tiled();
   if (!enc) return ERR_NO_ENCODE;
@@ -549,14 +564,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (r != CUDA_SUCCESS) return ERR_ENCODE_BASE - (int)r;
   const int bytes = C::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D, DV>,
+      flash_prefill_kernel<D, DV, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Sq + NWG * BQ - 1) / (NWG * BQ));
-  flash_prefill_kernel<D, DV><<<grid, NTHREADS, bytes, stream>>>(
+  constexpr float LOG2E = 1.4426950408889634f;
+  flash_prefill_kernel<D, DV, CAP><<<grid, NTHREADS, bytes, stream>>>(
       tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(o), Sq, Sk, H,
-      K, causal, window, scale * 1.4426950408889634f);
+      K, causal, window, CAP ? scale / cap : scale * LOG2E, cap * LOG2E);
   return (int)cudaGetLastError();
+}
+
+template <int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Sk, int H, int K, int causal, int window, float scale,
+           float cap, cudaStream_t stream) {
+  return cap != 0.f
+      ? launch<D, DV, true>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
+                            scale, cap, stream)
+      : launch<D, DV, false>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
+                             scale, cap, stream);
 }
 
 // The (D, DV) pairs built, as one switch key.
@@ -569,7 +596,7 @@ constexpr int widths(int D, int DV) { return D * 1024 + DV; }
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* o, int B, int Sq, int Sk, int H, int K,
                              int D, int DV, int causal, int window,
-                             float scale, void* stream) {
+                             float scale, float cap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return 0;
   if (Sk == 0)                     // no keys: every row gives 0
@@ -577,16 +604,16 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   switch (widths(D, DV)) {
     case widths(16, 16):
       return launch<16, 16>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
-                            scale, s);
+                            scale, cap, s);
     case widths(64, 64):
       return launch<64, 64>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
-                            scale, s);
+                            scale, cap, s);
     case widths(128, 128):
       return launch<128, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
-                              scale, s);
+                              scale, cap, s);
     case widths(192, 128):
       return launch<192, 128>(q, k, v, o, B, Sq, Sk, H, K, causal, window,
-                              scale, s);
+                              scale, cap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -14,6 +14,11 @@ KV head h // (H/K) in place instead of expanding GQA.  Inside
 ``build.dry_run()`` a meta tensor takes the dry run's route: the CUDA
 path's checks and output on meta, its work (``flash_prefill_work``)
 tallied, nothing launched.
+
+A nonzero ``cap`` soft-caps the scaled scores, ``cap * tanh(s / cap)`` before
+the mask, as the reference's ``attention_dense`` / ``chunked_attention``
+apply ``logit_cap`` (``cfg.attn_logit_softcap``); 0 leaves them as they
+are.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ NEG_INF = -1e30
 WIDTHS = ((16, 16), (64, 64), (128, 128), (192, 128))   # (D, Dv) built
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
 def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -38,9 +43,11 @@ def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return k if K == n_heads else k.repeat_interleave(n_heads // K, dim=2)
 
 
-def flash_prefill_plain(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_prefill_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                        cap: float = 0.0):
     """Masked softmax attention with GQA expanded, scores and sums in f32;
-    v may be narrower or wider than q and k (the output takes v's width).
+    v may be narrower or wider than q and k (the output takes v's width);
+    the scaled scores soft-capped where ``cap`` is set.
 
     The arithmetic of ``_flash_kernel`` (and of the reference's
     ``layers.chunked_attention`` when the sequence fits one tile): the
@@ -52,6 +59,8 @@ def flash_prefill_plain(q, k, v, *, causal: bool = True, window: int = 0):
     vx = expand_kv(v, H)
     s = torch.einsum("bqhd,bshd->bhqs", q.float(), kx.float()) \
         * (1.0 / math.sqrt(D))
+    if cap:
+        s = cap * torch.tanh(s / cap)
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
@@ -96,22 +105,25 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
 
 
 def flash_prefill_work(B, Sq, Sk, H, K, D, Dv, *, causal=True, window=0,
-                       itemsize=2):
+                       cap=0.0, itemsize=2):
     """(operations, bytes) of one call: 2 (D + Dv) a visible pair (the
-    q.k and p.v products), q, k, v read once and the output written
-    once."""
-    flops = 2 * (D + Dv) * B * H * visible_pairs(Sq, Sk, causal, window)
+    q.k and p.v products), and with a cap 3 more (the divide, the tanh and
+    the multiply); q, k, v read once and the output written once."""
+    pairs = B * H * visible_pairs(Sq, Sk, causal, window)
+    flops = (2 * (D + Dv) + (3 if cap else 0)) * pairs
     nbytes = itemsize * (B * Sq * H * (D + Dv) + B * Sk * K * (D + Dv))
     return flops, nbytes
 
 
-def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
+                  cap: float = 0.0):
     """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv).  Returns
-    (B, Sq, H, Dv)."""
+    (B, Sq, H, Dv); a nonzero ``cap`` soft-caps the scores."""
     build.refuse_dtensor("flash_prefill", q, k, v)
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, causal=causal, window=window)
+        return flash_prefill_plain(q, k, v, causal=causal, window=window,
+                                   cap=cap)
     dry = build.on_meta("flash_prefill", q)
     if not dry and q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
@@ -129,12 +141,14 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0):
     out = q.new_empty(B, Sq, H, Dv)
     if dry:
         build.tally("flash_prefill", flash_prefill_work(
-            B, Sq, Sk, H, K, D, Dv, causal=causal, window=window), out)
+            B, Sq, Sk, H, K, D, Dv, causal=causal, window=window, cap=cap),
+            out)
         return out
     fn = build.function("flash_attention", "flash_prefill", _ARGTYPES)
     err = build.launch(q.device, fn, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
-                       Dv, int(causal), int(window), 1.0 / math.sqrt(D))
+                       Dv, int(causal), int(window), 1.0 / math.sqrt(D),
+                       float(cap))
     if err < 0:
         raise RuntimeError(f"flash_prefill: the K/V tensor maps could not be "
                            f"made (code {err}: -1 no cuTensorMapEncodeTiled "

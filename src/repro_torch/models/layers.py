@@ -131,11 +131,13 @@ def _visible(i, j, qb, kb, causal, window) -> bool:
     return not (window and i * qb - (j * kb + kb - 1) >= window)
 
 
-def _attn_q_block(q, k, v, i, qb, kb, causal, window, mode="full"):
+def _attn_q_block(q, k, v, i, qb, kb, causal, window, mode="full",
+                  cap=0.0):
     """Query block i over every key block (mode="full": each pair, masked)
     or over the blocks it sees (mode="tri": the causal triangle or the
     window's band, ``_visible``): the online softmax of the reference's
-    ``_chunked_attention_bwd_safe``.
+    ``_chunked_attention_bwd_safe``, the scaled scores soft-capped
+    (``cap * tanh(s / cap)``, before the mask) where ``cap`` is set.
     Scores are bf16 products summed in f32; m, l and acc are f32; p is
     rounded to v's type before P.V; ``torch.minimum`` / ``maximum`` split
     the gradient at a tie as ``jnp.minimum`` / ``maximum`` do.  Returns
@@ -155,6 +157,8 @@ def _attn_q_block(q, k, v, i, qb, kb, causal, window, mode="full"):
         kj = k[:, j * kb:(j + 1) * kb].float()
         vj = v[:, j * kb:(j + 1) * kb]
         s = torch.einsum("bqhd,bshd->bhqs", qi, kj) * (1.0 / math.sqrt(D))
+        if cap:
+            s = cap * torch.tanh(s / cap)
         kpos = j * kb + torch.arange(kb, device=dev)
         msk = torch.ones(qb, kb, dtype=torch.bool, device=dev)
         if causal:
@@ -176,15 +180,17 @@ def _attn_q_block(q, k, v, i, qb, kb, causal, window, mode="full"):
 
 def chunked_attention_train(q, k, v, *, causal: bool = True,
                             window: int = 0, q_block: int = 512,
-                            kv_block: int = 512, mode: str = "full"):
+                            kv_block: int = 512, mode: str = "full",
+                            cap: float = 0.0):
     """The training attention, twin of the reference's
     ``_chunked_attention_bwd_safe`` (``repro/models/layers.py:244``): a
     Python loop over query blocks, each under ``torch.utils.checkpoint`` so
     the backward recomputes its scores instead of keeping (Sq, Sk) of
     them.  q (B, Sq, H, D); k, v (B, Sk, H, D|Dv), already expanded to H
     heads; ``mode`` "full" (every block pair, masked) or "tri" (the
-    visible pairs only: the same result, fewer FLOPs).  Returns (B, Sq, H,
-    Dv) in q's type."""
+    visible pairs only: the same result, fewer FLOPs); ``cap`` soft-caps
+    the scores inside the checkpointed block, so the backward goes through
+    the tanh.  Returns (B, Sq, H, Dv) in q's type."""
     B, Sq, H, D = q.shape
     if k.shape[2] != H:
         raise ValueError("expand_kv before chunked_attention_train")
@@ -193,7 +199,8 @@ def chunked_attention_train(q, k, v, *, causal: bool = True,
     qb = _pick_block(Sq, q_block)
     kb = _pick_block(k.shape[1], kv_block)
     outs = [checkpoint(_attn_q_block, q, k, v, i, qb, kb, causal, window,
-                       mode, use_reentrant=False) for i in range(Sq // qb)]
+                       mode, cap, use_reentrant=False)
+            for i in range(Sq // qb)]
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
 
 
@@ -412,17 +419,26 @@ def _gqa_qkv_local(x, p, cfg, positions, env):
 
 
 def _attend(q, k, v, *, causal, train, attn_block, window=0,
-            attn_mode="full"):
+            attn_mode="full", cap=0.0):
     """Prefill through ``flash_prefill``, or with ``train`` the blocked
     training attention over ``expand_kv``'d K/V (in ``attn_mode``), as the
-    reference's ``bwd_safe`` route expands them."""
+    reference's ``bwd_safe`` route expands them; either soft-capped by
+    ``cap``.
+
+    Only the full-sequence GQA attention takes a cap
+    (``cfg.attn_logit_softcap``): the reference's ``decode_attention``
+    has no cap argument and its ``mla_attention_full`` passes none
+    (``repro/models/layers.py:310,540``), so every decode path here (the
+    contiguous, paged and cross-attention ones) and MLA stay uncapped,
+    and a capped model's decode parts from its own forward, as the
+    reference's does."""
     if not train:
-        return flash_prefill(q, k, v, causal=causal, window=window)
+        return flash_prefill(q, k, v, causal=causal, window=window, cap=cap)
     H = q.shape[2]
     return chunked_attention_train(q, expand_kv(k, H), expand_kv(v, H),
                                    causal=causal, window=window,
                                    q_block=attn_block, kv_block=attn_block,
-                                   mode=attn_mode)
+                                   mode=attn_mode, cap=cap)
 
 
 def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
@@ -431,10 +447,12 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
                        env=None):
     """Full-sequence attention: prefill through the flash kernel, or with
     ``train`` through ``chunked_attention_train`` (blocks of
-    ``attn_block``, in ``attn_mode``).  ``kv_override`` (k, v), each (B,
-    Sk, K, dh): a cross-attention's keys and values, taken as they are (no
-    rope), while q is roped at ``positions``, as the reference does; the
-    projections it replaces are not computed.  Returns (y, k, v).
+    ``attn_block``, in ``attn_mode``), either soft-capped by
+    ``cfg.attn_logit_softcap`` (``_attend``).  ``kv_override`` (k, v),
+    each (B, Sk, K, dh): a cross-attention's keys and values, taken as
+    they are (no rope), while q is roped at ``positions``, as the
+    reference does; the projections it replaces are not computed.
+    Returns (y, k, v).
 
     On a mesh: each rank runs ``flash_prefill`` (with ``train``,
     ``chunked_attention_train``) on its q rows and heads
@@ -444,9 +462,6 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
     pending over 'model'; in f32 (``_out_proj``).  ``kv_override`` is
     then a pair of DTensors (any layout); the rank takes its q rows of
     them."""
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError("attention logit soft-capping is not "
-                                  "ported: the flash kernel has no cap")
     if on_mesh(env):
         B, S, _ = x.shape
         H, dh = cfg.n_heads, cfg.head_dim
@@ -463,7 +478,8 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
                                h0, Hl, H)
         y = _global(_attend(q, kk, vv, causal=causal, train=train,
                             attn_block=attn_block, attn_mode=attn_mode,
-                            window=cfg.sliding_window),
+                            window=cfg.sliding_window,
+                            cap=cfg.attn_logit_softcap),
                     env, (B, S, H, dh), qw)
         if env.opts.get("rs_matmul") and env.heads_shardable(H):
             return rs_out_proj(y, p["wo"], env, "bshx,hxd->bsd"), k, v
@@ -474,7 +490,7 @@ def gqa_attention_full(x, p, cfg, positions, *, causal: bool = True,
         q, (k, v) = gqa_q(x, p, cfg, positions), kv_override
     y = _attend(q, k, v, causal=causal, train=train,
                 attn_block=attn_block, attn_mode=attn_mode,
-                window=cfg.sliding_window)
+                window=cfg.sliding_window, cap=cfg.attn_logit_softcap)
     return torch.einsum("bshx,hxd->bsd", y, p["wo"]), k, v
 
 

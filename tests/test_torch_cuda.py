@@ -113,6 +113,32 @@ def test_flash_kernel_cross_attention_on_card(cuda, D, Sq, Sk):
     assert float((out.float() - ref.float()).abs().max()) < TOL
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Dv", [(16, 16), (64, 64), (128, 128),
+                                  (192, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32),
+                                           (False, 0)])
+def test_flash_kernel_soft_cap_on_card(cuda, D, Dv, causal, window):
+    """``cap`` (``attn_logit_softcap``) at every width built, ragged S
+    and a cross-attention's Sq != Sk: the kernel against
+    ``flash_prefill_plain(cap=...)``; cap 0 equals the call without one
+    bit for bit, and the cap moves the output far past TOL (std-1 inputs
+    give scores of std 1 against a cap of 1)."""
+    g = torch.Generator(device=cuda).manual_seed(D + Dv + window)
+    Sq, Sk = (200, 200) if causal else (77, 300)
+    q, k = (torch.randn(2, s, h, D, generator=g, device=cuda)
+            .to(torch.bfloat16) for s, h in ((Sq, 4), (Sk, 2)))
+    v = torch.randn(2, Sk, 2, Dv, generator=g, device=cuda).to(
+        torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    out = F.flash_prefill(q, k, v, cap=1.0, **kw)
+    ref = F.flash_prefill_plain(q, k, v, cap=1.0, **kw)
+    assert float((out.float() - ref.float()).abs().max()) < TOL
+    plain = F.flash_prefill(q, k, v, **kw)
+    assert torch.equal(F.flash_prefill(q, k, v, cap=0.0, **kw), plain)
+    assert float((plain.float() - ref.float()).abs().max()) > 10 * TOL
+
+
 def _paged_case(cuda, g, lens, G, dh, K=2, blk=16, nb=16):
     """Pools of random bf16, each row's table a random draw of distinct
     blocks, the append's drop sentinel on the last row."""

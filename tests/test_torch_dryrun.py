@@ -240,7 +240,7 @@ class Stubs:
         return call
 
     @staticmethod
-    def flash(q, k, v, *, causal=True, window=0):
+    def flash(q, k, v, *, causal=True, window=0, cap=0.0):
         return q.new_zeros(*q.shape[:3], v.shape[3])
 
     def decode(self, q, k_pool, v_pool, tables, lens, *, window=0):
