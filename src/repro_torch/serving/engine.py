@@ -29,12 +29,22 @@ taken from the gathered logits, so every rank picks the same id and
 keeps the same host state (slots, tables, free list, counters, copy
 bytes).  The MoE archs run ``env.opts["moe_impl"]``, as the reference's
 engine does.  With ``env`` None the engine runs on one device.
+
+``Engine.wall``, a ``repro_torch.obs.tracer.Tracer`` the caller sets (None
+by default), records wall-clock spans on the clock ``torch.profiler``
+stamps its events with (``wall_clock``), so they lie over a device trace:
+``admit`` (children ``admit.prefill``, ``admit.land``, ``admit.wait``) per
+``start_session`` and ``round`` (children ``round.prep``, ``round.model``,
+``round.wait``, ``round.commit`` per step) per ``decode``.  With it None
+the engine reads no clock and records nothing.  The spans only record:
+nothing the engine or the runtime decides reads them.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -42,12 +52,35 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.models.layers import on_mesh
+from repro_torch.obs.tracer import Tracer
 from repro_torch.serving.kvcache import PagedKVPool
 
 # the reference's jit bucket: prefill lengths pad to lcm(bucket,
 # block_size) so a bucket boundary never splits a KV block
 # (PagedKVPool.extend asserts this invariant)
 _PREFILL_BUCKET = 32
+
+# the wall spans' one track, and the children of an admission (after its
+# bookkeeping) and of a decode step (tiling it), in order
+WALL_TRACK = "engine"
+ADMIT_PHASES = ("admit.prefill", "admit.land", "admit.wait")
+ROUND_PHASES = ("round.prep", "round.model", "round.wait", "round.commit")
+
+
+def wall_clock() -> float:
+    """Seconds on the clock ``torch.profiler`` stamps its events with: a
+    kineto event's ``start_ns()`` lies between two reads of
+    ``time.time_ns()`` (``tests/test_torch_engine_spans.py`` pins it on the
+    CPU, ``tests/test_torch_cuda.py`` against the card's events)."""
+    # sagalint: ok(det-clock) wall spans only record, never feed a decision
+    return time.time_ns() / 1e9
+
+
+def _mark(t: Optional[List[float]]) -> None:
+    """Append the wall clock to ``t``, a traced call's marks; None (the
+    engine's ``wall`` off) reads no clock."""
+    if t is not None:
+        t.append(wall_clock())
 
 
 def check_engine_family(cfg: ModelConfig) -> None:
@@ -115,6 +148,9 @@ class Engine:
                                  // math.gcd(_PREFILL_BUCKET, block_size))
         # stats
         self.prefill_tokens = 0
+        # every admission that prefilled its whole context, first
+        # admissions included: rt.stats() sums it and the serving
+        # fingerprints read it (the ``admit`` spans' kinds tell resumes)
         self.regen_tokens = 0
         self.decode_steps = 0
         # device-copy accounting for the park/resume/migration paths
@@ -125,6 +161,26 @@ class Engine:
         # prefill->decode handoff transport (disaggregated pools):
         # counted separately from migration so the A/B stays legible
         self.handoff_copy_bytes = 0
+        # wall-clock spans (the ``wall`` property)
+        self._wall: Optional[Tracer] = None
+        self._wall_seen: Optional[Set[str]] = None
+
+    @property
+    def wall(self) -> Optional[Tracer]:
+        """The wall-clock span recorder, or None (no clock read, nothing
+        recorded).  The ids of the sessions admitted while it is set live
+        from its first setting until it is set to None, so a tracer
+        swapped for another keeps telling a first admission from a
+        resume, and tracing off holds no per-session state."""
+        return self._wall
+
+    @wall.setter
+    def wall(self, tracer: Optional[Tracer]) -> None:
+        if tracer is None:
+            self._wall_seen = None
+        elif self._wall is None:
+            self._wall_seen = set()
+        self._wall = tracer
 
     def _ints(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
         return torch.from_numpy(a).to(device=self.device, dtype=dtype)
@@ -161,6 +217,12 @@ class Engine:
             cache[:, slot, n:] = 0
         self.slots[slot].length = length
 
+    def _pad_len(self, n: int) -> int:
+        """The length a prefill of ``n`` tokens runs at: ``n`` up to the
+        prefill quantum, at most ``max_len`` (and never below ``n``)."""
+        q = self._prefill_quantum
+        return max(n, min(self.max_len, -(-n // q) * q))
+
     def _prefill_kv(self, tokens: np.ndarray):
         """Prefill ``tokens`` and return (k, v) of shape (L, n, K, dh).
 
@@ -171,9 +233,7 @@ class Engine:
         serves text only: its patch stream is empty (1, 0, d_model), as
         in the reference, which is exact, not an approximation."""
         n = len(tokens)
-        pad_to = min(self.max_len, -(-n // self._prefill_quantum)
-                     * self._prefill_quantum)
-        pad_to = max(pad_to, n)
+        pad_to = self._pad_len(n)
         padded = np.zeros(pad_to, np.int32)
         padded[:n] = tokens
         batch = {"tokens": self._ints(padded[None], torch.long)}
@@ -197,59 +257,92 @@ class Engine:
         if slot is None:
             return None
         tokens = np.asarray(tokens, np.int32)
-        if self.paged:
-            self._admit_paged(sid, tokens, cached_hit)
-            self.slots[slot] = SlotState(sid, len(tokens))
-        else:
-            self._admit_gather(slot, sid, tokens, cached_hit)
-            self.slots[slot].session_id = sid
+        t = [wall_clock()] if self._wall is not None else None
+        hit, n, parked = self._take(sid, cached_hit)
+        todo = tokens[n:]
+        _mark(t)
+        kv = self._prefill_kv(todo) if len(todo) or not hit else None
+        _mark(t)
+        self._land(slot, sid, tokens, hit, n, parked, kv)
+        _mark(t)
+        if t is not None:
+            # admit.wait: the span holds the prefill's device time
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t.append(wall_clock())
+            self._admit_spans(t, slot, sid, len(tokens), hit,
+                              len(todo) if kv is not None else 0)
         return slot
 
-    def _admit_paged(self, sid: str, tokens: np.ndarray,
-                     cached_hit: bool) -> None:
-        """Land the session's KV in pool blocks.  A cached hit is a pure
-        metadata flip (parked -> resident) plus a delta prefill scattered
-        straight into blocks; a miss allocates at admit and prefills the
-        full context into blocks.  As in the reference, the delta is
-        prefilled alone, positions counted from 0.  Resume-copy bytes
-        stay 0."""
+    def _admit_spans(self, t: List[float], slot: int, sid: str, ctx: int,
+                     hit: bool, prefill: int) -> None:
+        """An admission's ``admit`` span and its children from the marks
+        ``t`` (its start, then the ends of its bookkeeping and of each
+        child); its kind is ``hit``, else ``regen`` for a session admitted
+        while ``wall`` was set, else ``first``."""
+        seen = self._wall_seen
+        kind = "hit" if hit else "regen" if sid in seen else "first"
+        seen.add(sid)
+        w, track = self._wall, WALL_TRACK
+        aid = w.complete(track, "admit", t[0], t[-1], sid=sid, kind=kind,
+                         ctx=ctx, prefill=prefill,
+                         padded=self._pad_len(prefill) if prefill else 0,
+                         slot=slot)
+        for name, a, b in zip(ADMIT_PHASES, t[1:], t[2:]):
+            w.complete(track, name, a, b, parent=aid)
+
+    def _take(self, sid: str, cached_hit: bool):
+        """An admission's bookkeeping before its prefill: (hit, tokens
+        whose KV the engine already holds, the parked KV copied out in
+        gather mode or None)."""
+        if self.paged:
+            return self._take_paged(sid, cached_hit)
+        return self._take_gather(sid, cached_hit)
+
+    def _take_paged(self, sid: str, cached_hit: bool):
+        """A cached hit is a pure metadata flip (parked -> resident); a
+        miss allocates at admit.  The delta is then prefilled alone,
+        positions counted from 0, as in the reference, and scattered
+        straight into blocks.  Resume-copy bytes stay 0."""
         pool = self.pool
         if cached_hit and pool.has(sid):
             n = pool.lens[sid]
             pool.mark_resident(sid)
-            delta = tokens[n:]
-            if len(delta):
-                dk, dv = self._prefill_kv(delta)
-                pool.extend(sid, dk, dv, bucket=self._prefill_quantum)
-                self.prefill_tokens += len(delta)
-        else:
-            pool.alloc(sid)
-            k, v = self._prefill_kv(tokens)
-            pool.extend(sid, k, v, bucket=self._prefill_quantum)
-            self.prefill_tokens += len(tokens)
-            self.regen_tokens += len(tokens)
+            return True, n, None
+        pool.alloc(sid)
+        return False, 0, None
 
-    def _admit_gather(self, slot: int, sid: str, tokens: np.ndarray,
-                      cached_hit: bool) -> None:
-        """Gather mode: copy parked blocks into the contiguous per-slot
-        cache (an O(context-bytes) resume copy)."""
+    def _take_gather(self, sid: str, cached_hit: bool):
+        """Gather mode: a hit copies the parked blocks out (an
+        O(context-bytes) resume copy) and frees them."""
         resumed = self.pool.resume(sid) if cached_hit else None
-        if resumed is not None:
-            k, v, n = resumed
-            self.resume_copy_bytes += self.pool.session_bytes(sid)
-            delta = tokens[n:]
-            self.pool.free_session(sid)
-            if len(delta):
-                dk, dv = self._prefill_kv(delta)
-                k = torch.cat([k, dk], dim=1)
-                v = torch.cat([v, dv], dim=1)
-                self.prefill_tokens += len(delta)
-            self._write_slot(slot, k, v, len(tokens))
+        if resumed is None:
+            return False, 0, None
+        k, v, n = resumed
+        self.resume_copy_bytes += self.pool.session_bytes(sid)
+        self.pool.free_session(sid)
+        return True, n, (k, v)
+
+    def _land(self, slot: int, sid: str, tokens: np.ndarray, hit: bool,
+              n: int, parked, kv) -> None:
+        """Land the prefilled KV ``kv`` (or None) in the session's pool
+        blocks, or with the parked KV in the slot's contiguous cache in
+        gather mode; bind the slot and count."""
+        if self.paged:
+            if kv is not None:
+                self.pool.extend(sid, *kv, bucket=self._prefill_quantum)
+            self.slots[slot] = SlotState(sid, len(tokens))
         else:
-            k, v = self._prefill_kv(tokens)
-            self.prefill_tokens += len(tokens)
-            self.regen_tokens += len(tokens)
+            k, v = kv if parked is None else parked
+            if parked is not None and kv is not None:
+                k = torch.cat([k, kv[0]], dim=1)
+                v = torch.cat([v, kv[1]], dim=1)
             self._write_slot(slot, k, v, len(tokens))
+            self.slots[slot].session_id = sid
+        if kv is not None:
+            self.prefill_tokens += len(tokens) - n
+        if not hit:
+            self.regen_tokens += len(tokens)
 
     def decode(self, slot_tokens: Dict[int, int],
                n_steps: int = 1) -> Dict[int, List[int]]:
@@ -267,32 +360,38 @@ class Engine:
         round out loses its first cached token)."""
         out: Dict[int, List[int]] = {s: [] for s in slot_tokens}
         cur = dict(slot_tokens)
+        t = [wall_clock()] if self._wall is not None else None
         for _ in range(n_steps):
-            tok = np.zeros((self.n_slots, 1), np.int32)
-            pos = np.zeros((self.n_slots,), np.int32)
-            for s, t in cur.items():
-                tok[s, 0] = t
-                pos[s] = self.slots[s].length
-            if self.paged:
-                logits = self._step_paged(cur, tok, pos)
-            else:
-                logits, self.cache = lm.decode_step(
-                    self.params, self._ints(tok, torch.long), self.cache,
-                    self._ints(pos), self.cfg, self.env)
-            nxt = self._whole(logits)[:, 0, :].argmax(dim=-1).cpu().numpy()
-            for s in cur:
-                if self.paged:
-                    self.pool.append_token(self.slots[s].session_id)
-                self.slots[s].length += 1
-                out[s].append(int(nxt[s]))
-                cur[s] = int(nxt[s])
-            self.decode_steps += 1
+            inputs = self._round_inputs(cur)
+            _mark(t)
+            logits = self._round_model(inputs)
+            _mark(t)
+            nxt = self._round_ids(logits)
+            _mark(t)
+            self._round_commit(cur, out, nxt)
+            _mark(t)
+        if t is not None:
+            # visible: the live rows' positions + 1 at the round's start
+            visible = sum(self.slots[s].length + 1 - n_steps for s in cur)
+            w, track = self._wall, WALL_TRACK
+            rid = w.complete(track, "round", t[0], t[-1], rows=len(cur),
+                             n_steps=n_steps, visible=visible)
+            for i in range(len(t) - 1):
+                w.complete(track, ROUND_PHASES[i % 4], t[i], t[i + 1],
+                           parent=rid)
         return out
 
-    def _step_paged(self, cur: Dict[int, int], tok: np.ndarray,
-                    pos: np.ndarray) -> torch.Tensor:
-        """One paged decode step for the rows in ``cur``; returns the
-        logits (n_slots, 1, V)."""
+    def _round_inputs(self, cur: Dict[int, int]) -> Tuple[torch.Tensor, ...]:
+        """A step's inputs on the device: the rows' tokens and positions
+        and, in paged mode, the block tables (with tail room ensured) and
+        each row's append block and offset."""
+        tok = np.zeros((self.n_slots, 1), np.int32)
+        pos = np.zeros((self.n_slots,), np.int32)
+        for s, t in cur.items():
+            tok[s, 0] = t
+            pos[s] = self.slots[s].length
+        if not self.paged:
+            return self._ints(tok, torch.long), self._ints(pos)
         pool = self.pool
         tables = np.zeros((self.n_slots, self.max_nb), np.int32)
         ablk = np.full((self.n_slots,), pool.total_blocks, np.int32)
@@ -303,11 +402,40 @@ class Engine:
             tbl = pool.tables[sid]
             tables[s, :len(tbl)] = tbl
             ablk[s], aoff[s] = pool.tail_slot(sid)
+        return (self._ints(tok, torch.long), self._ints(tables),
+                self._ints(pos), self._ints(ablk), self._ints(aoff))
+
+    def _round_model(self, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """One decode step of the model; returns the logits (n_slots, 1,
+        V)."""
+        if not self.paged:
+            tok, pos = inputs
+            logits, self.cache = lm.decode_step(
+                self.params, tok, self.cache, pos, self.cfg, self.env)
+            return logits
+        pool = self.pool
+        tok, tables, pos, ablk, aoff = inputs
         logits, pool.k_pool, pool.v_pool = lm.decode_step_paged(
-            self.params, self._ints(tok, torch.long), pool.k_pool,
-            pool.v_pool, self._ints(tables), self._ints(pos),
-            self._ints(ablk), self._ints(aoff), self.cfg, self.env)
+            self.params, tok, pool.k_pool, pool.v_pool, tables, pos, ablk,
+            aoff, self.cfg, self.env)
         return logits
+
+    def _round_ids(self, logits: torch.Tensor) -> np.ndarray:
+        """The greedy ids, picked on the device; the host waits for them
+        here."""
+        return self._whole(logits)[:, 0, :].argmax(dim=-1).cpu().numpy()
+
+    def _round_commit(self, cur: Dict[int, int], out: Dict[int, List[int]],
+                      nxt: np.ndarray) -> None:
+        """Each row's new token: its pool length, its slot's length, the
+        output and the next step's input."""
+        for s in cur:
+            if self.paged:
+                self.pool.append_token(self.slots[s].session_id)
+            self.slots[s].length += 1
+            out[s].append(int(nxt[s]))
+            cur[s] = int(nxt[s])
+        self.decode_steps += 1
 
     def park_session(self, sid: str) -> bool:
         """Session pauses for a tool call.  Paged mode: metadata-only —

@@ -821,3 +821,66 @@ def test_forward_train_on_card_matches_cpu(cuda, mod, monkeypatch):
     for name, g in grads_c.items():
         top = max(float(g.abs().max()), 1e-30)
         assert float((grads_g[name] - g).abs().max()) < TOL * top, name
+
+
+@pytest.mark.cuda
+def test_engine_wall_spans_on_the_profilers_clock(cuda):
+    """The engine's wall spans lie on the profiler's clock, in every
+    profiled round of a short engine run (micro, three rows): the runtime
+    call that copies the ids to the host (the last ``cudaMemcpyAsync``
+    that starts inside ``round.wait``, a CPU event) ends 0-100 us before
+    ``round.wait`` does, and the copy itself on the device ends 0-1 ms
+    before.  The device's events get 1 ms: the profiler's GPU timestamps
+    drifted against the host's clock, by up to 3.9 us a ms, in 5 of 30
+    profiler sessions on an H100 (its CPU events did not), reaching 0.51
+    ms by this run's last round; otherwise they read 24-172 us.  The
+    collector is off while profiling: its pauses are the host's, not the
+    clocks'."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("micro")
+    params = _to(lm.init_params(cfg, seed=3, device="cpu"), cuda)
+    eng = Engine(cfg, params, n_slots=4, max_len=256, pool_blocks=32)
+    rng = np.random.RandomState(3)
+    cur = {}
+    for i in range(3):
+        toks = rng.randint(1, cfg.vocab, 40 + 10 * i)
+        cur[eng.start_session(f"s{i}", toks, False)] = int(toks[-1])
+    eng.decode(cur)                                      # warm
+    eng.wall = Tracer()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    gc.disable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(21):
+                out = eng.decode(cur)
+                cur = {s: o[-1] for s, o in out.items()}
+    finally:
+        gc.enable()
+    cpu = torch.autograd.DeviceType.CPU
+    events = list(prof.profiler.kineto_results.events())
+    calls = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in events if e.device_type() == cpu
+                   and e.name() == "cudaMemcpyAsync")
+    copies = sorted(e.start_ns() + e.duration_ns() for e in events
+                    if e.device_type() != cpu and "DtoH" in e.name())
+    waits = [sp for sp in eng.wall.spans if sp.name == "round.wait"]
+    assert len(waits) == len(copies) == 21
+    host, device = [], []
+    for sp, copy_end in zip(waits, copies):
+        a, b = round(sp.t0 * 1e9), round(sp.t1 * 1e9)
+        inside = [c for c in calls if a <= c[0] <= b]
+        assert inside, "no cudaMemcpyAsync call inside round.wait"
+        host.append(b - inside[-1][1])
+        device.append(b - copy_end)
+    print("round.wait's end after the ids' copy call / copy, ns:", host,
+          device)
+    assert all(0 <= lag <= 100_000 for lag in host), host
+    assert all(0 <= lag <= 1_000_000 for lag in device), device
