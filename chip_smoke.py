@@ -1608,47 +1608,42 @@ def gather_identity(torch, np, card, cfg, params):
     sizes, the twin of tests/test_paged_decode.py::_identity_roundtrip at
     full width: a 1024-token prompt, 8 decoded tokens, a park, a resume
     with a 128-token delta, 8 more.  The ids must be identical.  Where
-    they part, the step's logits, recorded from each engine's own
-    ``lm.decode_step`` / ``lm.decode_step_paged`` calls, must show a
-    near-tie (ROADMAP.md): the gather run's top-2 logit gap below the two
-    paths' logit difference."""
-    from repro_torch.models import lm
+    they part, the step's logits, recorded from each engine's own steps
+    (``Engine._round_model``: the paged engine's round graph or eager
+    step, the gather engine's ``lm.decode_step``), must show a near-tie
+    (ROADMAP.md): the gather run's top-2 logit gap below the two paths'
+    logit difference."""
     from repro_torch.serving.engine import Engine
 
     rng = np.random.RandomState(4)
     prompt = rng.randint(1, cfg.vocab, size=1024).astype(np.int32)
     tool = rng.randint(1, cfg.vocab, size=128).astype(np.int32)
-    real = (lm.decode_step, lm.decode_step_paged)
 
     def recorded(fn, sink):
         def call(*args, **kw):
             out = fn(*args, **kw)
-            sink.append(out[0][:, 0].float().cpu())
+            sink.append(out[:, 0].float().cpu())
             return out
         return call
 
     runs = {}
     for mode in ("paged", "gather"):
         logits = []
-        lm.decode_step, lm.decode_step_paged = (recorded(f, logits)
-                                                for f in real)
-        try:
-            eng = Engine(cfg, params, n_slots=4, max_len=2048,
-                         pool_blocks=1024, paged=mode == "paged")
-            t0 = time.perf_counter()
-            s = eng.start_session("x", prompt, cached_hit=False)
-            first = eng.decode({s: int(prompt[-1])}, n_steps=8)[s]
-            rows = [s] * 8
-            if not eng.park_session("x"):
-                raise AssertionError(f"{mode} engine: park failed")
-            ctx = np.concatenate([prompt, np.asarray(first, np.int32), tool])
-            s = eng.start_session("x", ctx, cached_hit=True)
-            rest = eng.decode({s: int(ctx[-1])}, n_steps=8)[s]
-            rows += [s] * 8
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            lm.decode_step, lm.decode_step_paged = real
+        eng = Engine(cfg, params, n_slots=4, max_len=2048, pool_blocks=1024,
+                     paged=mode == "paged")
+        eng._round_model = recorded(eng._round_model, logits)
+        t0 = time.perf_counter()
+        s = eng.start_session("x", prompt, cached_hit=False)
+        first = eng.decode({s: int(prompt[-1])}, n_steps=8)[s]
+        rows = [s] * 8
+        if not eng.park_session("x"):
+            raise AssertionError(f"{mode} engine: park failed")
+        ctx = np.concatenate([prompt, np.asarray(first, np.int32), tool])
+        s = eng.start_session("x", ctx, cached_hit=True)
+        rest = eng.decode({s: int(ctx[-1])}, n_steps=8)[s]
+        rows += [s] * 8
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         runs[mode] = {"ids": first + rest, "wall": wall,
                       "logits": [lg[r] for lg, r in zip(logits, rows)],
                       "copies": (eng.park_copy_bytes, eng.resume_copy_bytes)}
@@ -4011,9 +4006,11 @@ class EngineHold:
             threading.local()
 
     def record(self, fn):
+        """``fn``: the one-device engine's ``_round_model`` (a step's
+        logits, from its round graph on the card)."""
         def call(*args, **kw):
             out = fn(*args, **kw)
-            self.logits.append(out[0][:, 0].float().clone())
+            self.logits.append(out[:, 0].float().clone())
             return out
         return call
 
@@ -4071,21 +4068,17 @@ def rest_engine(torch, np, card, wrappers, fails):
     params = ready(torch, lm, cfg)
     hold = EngineHold(torch)
     step = lm.decode_step_paged
-    lm.decode_step_paged = hold.record(step)
-    try:
-        with torch.no_grad():
-            Engine(cfg, params, **ENGINE_KW).start_session(
-                "warm", np.arange(1, 65, dtype=np.int32), False)
-            hold.logits.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng = Engine(cfg, params, **ENGINE_KW)
-            ids_1, states_1 = engine_script(np, eng, cfg.vocab)
-            torch.cuda.synchronize()
-            t_one = time.perf_counter() - t0
-            del eng
-    finally:
-        lm.decode_step_paged = step
+    with torch.no_grad():
+        Engine(cfg, params, **ENGINE_KW).start_session(
+            "warm", np.arange(1, 65, dtype=np.int32), False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, **ENGINE_KW)
+        eng._round_model = hold.record(eng._round_model)
+        ids_1, states_1 = engine_script(np, eng, cfg.vocab)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        del eng
     dp, tp = SHARDED_MESH
     held = {"params": params}
     del params

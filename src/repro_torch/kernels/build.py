@@ -37,6 +37,8 @@ _FUNCS: Dict[tuple, object] = {}
 # the ranks of a threaded world call the wrappers from several threads
 _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+# a thread's open ``counted_apart`` tally (``tally``), if any
+_APART = threading.local()
 # the open dry run's tally: {kernel: {"calls", "flops", "bytes",
 # "alloc_bytes"}}, or None
 _DRY: Optional[Dict[str, Dict[str, int]]] = None
@@ -110,9 +112,37 @@ def function(lib: str, fn: str, argtypes: Sequence):
 
 def count(wrapper) -> None:
     """Add one to ``wrapper.launches``, under a lock: the ranks of a
-    threaded world launch from several threads at once."""
+    threaded world launch from several threads at once.  Inside
+    ``counted_apart`` the launch goes to that block's tally instead."""
+    tally = getattr(_APART, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Yield a tally {wrapper: launches} that this thread's launches inside
+    the ``with`` block go to, and not to the wrappers' ``launches``.  A
+    CUDA graph's warm-up and capture run so: the capture launches nothing
+    on the card, and a replay adds what it tallied (``add_counts``), so
+    ``launches`` counts what ran, as an eager call does."""
+    tally: Dict[object, int] = {}
+    outer = getattr(_APART, "tally", None)
+    _APART.tally = tally
+    try:
+        yield tally
+    finally:
+        _APART.tally = outer
+
+
+def add_counts(tally: Dict[object, int]) -> None:
+    """Add a ``counted_apart`` tally to its wrappers' ``launches``."""
+    with _COUNT_LOCK:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
 
 
 @contextlib.contextmanager

@@ -155,6 +155,15 @@ def _tickets(store, device, n: int) -> torch.Tensor:
     return t
 
 
+def kept_buffers(device) -> tuple:
+    """The buffers the decode wrapper keeps on ``device`` between calls
+    (its tickets), for a CUDA graph that captured a call to hold: a later
+    call that needs more tickets makes a larger buffer and drops this one,
+    which the graph's launches still read."""
+    t = _TICKETS.get(device)
+    return () if t is None else (t,)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------

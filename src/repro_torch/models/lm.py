@@ -1544,11 +1544,10 @@ def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
       and reads the kv heads of its q heads by ``_kv_for_heads``' rule.
 
     The idle rows' sentinel ``num_blocks`` stays out of range on every
-    replica (no layout splits the block axis)."""
-    check_family(cfg)
-    if cfg.family == "ssm" or cfg.attn_period or cfg.use_mla or cfg.enc_dec:
-        raise ValueError("paged decode covers the uniform GQA-cache "
-                         "families")
+    replica (no layout splits the block axis).
+
+    With no mesh it is ``unembed`` over ``decode_body_paged``."""
+    _check_paged(cfg)
     if L.on_mesh(env):
         x = embed_tokens(params, tokens, cfg, env)
         for i in range(cfg.n_layers):
@@ -1557,9 +1556,29 @@ def decode_step_paged(params, tokens, k_pool, v_pool, tables, pos,
                 _select(v_pool, i), tables, pos, block_ids, offsets, cfg,
                 env)
         return _decode_logits(params, x, cfg, env), k_pool, v_pool
+    x = decode_body_paged(params, tokens, k_pool, v_pool, tables, pos,
+                          block_ids, offsets, cfg)
+    return unembed(params, x, cfg), k_pool, v_pool
+
+
+def decode_body_paged(params, tokens, k_pool, v_pool, tables, pos,
+                      block_ids, offsets, cfg: ModelConfig):
+    """``decode_step_paged`` on one device up to the logits: the
+    embedding, every layer (the pools updated in place) and the final
+    norm.  Returns the normed stream (B, 1, d); ``unembed`` of it is the
+    step's logits.  The engine replays it as a CUDA graph
+    (``serving/round_graph.py``)."""
+    _check_paged(cfg)
     x = embed_tokens(params, tokens, cfg)
     for i in range(cfg.n_layers):
         x, _, _ = _uniform_decode_block_paged(
             x, _layer(params["layers"], i), k_pool[i], v_pool[i], tables,
             pos, block_ids, offsets, cfg)
-    return _final(params, x, cfg), k_pool, v_pool
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    check_family(cfg)
+    if cfg.family == "ssm" or cfg.attn_period or cfg.use_mla or cfg.enc_dec:
+        raise ValueError("paged decode covers the uniform GQA-cache "
+                         "families")

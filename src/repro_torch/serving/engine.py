@@ -38,6 +38,17 @@ stamps its events with (``wall_clock``), so they lie over a device trace:
 ``round.wait``, ``round.commit`` per step) per ``decode``.  With it None
 the engine reads no clock and records nothing.  The spans only record:
 nothing the engine or the runtime decides reads them.
+
+A paged engine on one CUDA device (``env`` None) replays each round's
+model body, ``lm.decode_body_paged``, as one CUDA graph
+(``serving/round_graph.py``), captured at its first paged decode; the
+unembed and the argmax stay eager.  The engine observes the three facts
+itself: gather mode, a mesh and the CPU run the eager round.
+``graph_captures`` counts the captures (one per engine) and
+``graph_rounds`` the steps served by a replay; with the graph
+``round.model`` holds the inputs' one copy to the device, the replay and
+the unembed's enqueue, and ``round.wait`` the device's time (the
+``round`` span's ``graph`` meta says which round ran).
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from repro_torch.models import lm
 from repro_torch.models.layers import on_mesh
 from repro_torch.obs.tracer import Tracer
 from repro_torch.serving.kvcache import PagedKVPool
+from repro_torch.serving.round_graph import RoundGraph
 
 # the reference's jit bucket: prefill lengths pad to lcm(bucket,
 # block_size) so a bucket boundary never splits a KV block
@@ -96,6 +108,13 @@ def check_engine_family(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: the engine's KV paths assume the GQA "
                          f"(k, v) cache layout, as the reference engine's "
                          f"do")
+
+
+def uses_round_graph(device: torch.device, paged: bool, env) -> bool:
+    """Whether an engine replays its decode rounds as a CUDA graph
+    (``serving/round_graph.py``): paged, on a CUDA device, with no
+    ``env``."""
+    return paged and device.type == "cuda" and env is None
 
 
 @dataclasses.dataclass
@@ -164,6 +183,11 @@ class Engine:
         # wall-clock spans (the ``wall`` property)
         self._wall: Optional[Tracer] = None
         self._wall_seen: Optional[Set[str]] = None
+        # the round's CUDA graph, made at the first paged decode where
+        # ``uses_round_graph``; its counters stay out of rt.stats()
+        self._graph: Optional[RoundGraph] = None
+        self.graph_captures = 0
+        self.graph_rounds = 0
 
     @property
     def wall(self) -> Optional[Tracer]:
@@ -375,44 +399,82 @@ class Engine:
             visible = sum(self.slots[s].length + 1 - n_steps for s in cur)
             w, track = self._wall, WALL_TRACK
             rid = w.complete(track, "round", t[0], t[-1], rows=len(cur),
-                             n_steps=n_steps, visible=visible)
+                             n_steps=n_steps, visible=visible,
+                             graph=self._graph is not None)
             for i in range(len(t) - 1):
                 w.complete(track, ROUND_PHASES[i % 4], t[i], t[i + 1],
                            parent=rid)
         return out
 
-    def _round_inputs(self, cur: Dict[int, int]) -> Tuple[torch.Tensor, ...]:
+    def _round_inputs(self, cur: Dict[int, int]) -> Tuple:
         """A step's inputs on the device: the rows' tokens and positions
         and, in paged mode, the block tables (with tail room ensured) and
-        each row's append block and offset."""
-        tok = np.zeros((self.n_slots, 1), np.int32)
-        pos = np.zeros((self.n_slots,), np.int32)
+        each row's append block and offset.  Where the round graph runs
+        they are written into its staging buffer's host arrays instead,
+        which ``_round_model`` copies over."""
+        if not self.paged:
+            tok = np.zeros((self.n_slots, 1), np.int32)
+            pos = np.zeros((self.n_slots,), np.int32)
+            for s, t in cur.items():
+                tok[s, 0] = t
+                pos[s] = self.slots[s].length
+            return self._ints(tok, torch.long), self._ints(pos)
+        graph = self._round_graph()
+        if graph is not None:
+            return self._paged_arrays(cur, graph.inputs.arrays)
+        tok, tables, pos, ablk, aoff = self._paged_arrays(cur)
+        return (self._ints(tok, torch.long), self._ints(tables),
+                self._ints(pos), self._ints(ablk), self._ints(aoff))
+
+    def _paged_arrays(self, cur: Dict[int, int], out=None):
+        """A paged step's five inputs as host arrays, written into ``out``
+        (a ``StagedInputs``' arrays) where given: tokens (n_slots, 1),
+        block tables (n_slots, max_nb) with tail room ensured, positions,
+        append blocks (the drop sentinel on idle rows) and offsets."""
+        pool = self.pool
+        if out is None:
+            n = self.n_slots
+            out = (np.empty((n, 1), np.int64),
+                   np.empty((n, self.max_nb), np.int32),
+                   *(np.empty(n, np.int32) for _ in range(3)))
+        tok, tables, pos, ablk, aoff = out
+        for a in (tok, tables, pos, aoff):
+            a.fill(0)
+        ablk.fill(pool.total_blocks)
         for s, t in cur.items():
+            sid = self.slots[s].session_id
             tok[s, 0] = t
             pos[s] = self.slots[s].length
-        if not self.paged:
-            return self._ints(tok, torch.long), self._ints(pos)
-        pool = self.pool
-        tables = np.zeros((self.n_slots, self.max_nb), np.int32)
-        ablk = np.full((self.n_slots,), pool.total_blocks, np.int32)
-        aoff = np.zeros((self.n_slots,), np.int32)
-        for s in cur:
-            sid = self.slots[s].session_id
             pool.ensure_tail_room(sid)
             tbl = pool.tables[sid]
             tables[s, :len(tbl)] = tbl
             ablk[s], aoff[s] = pool.tail_slot(sid)
-        return (self._ints(tok, torch.long), self._ints(tables),
-                self._ints(pos), self._ints(ablk), self._ints(aoff))
+        return out
 
-    def _round_model(self, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    def _round_graph(self) -> Optional[RoundGraph]:
+        """The round graph where ``uses_round_graph``, captured at the
+        first call; else None."""
+        if self._graph is None and uses_round_graph(self.device, self.paged,
+                                                    self.env):
+            self._graph = RoundGraph(self.params, self.cfg,
+                                     self.pool.k_pool, self.pool.v_pool,
+                                     self.n_slots, self.max_nb,
+                                     self.pool.total_blocks)
+            self.graph_captures += 1
+        return self._graph
+
+    def _round_model(self, inputs: Tuple) -> torch.Tensor:
         """One decode step of the model; returns the logits (n_slots, 1,
-        V)."""
+        V).  With the round graph: the staged inputs copied over, the
+        body replayed, then the unembed."""
         if not self.paged:
             tok, pos = inputs
             logits, self.cache = lm.decode_step(
                 self.params, tok, self.cache, pos, self.cfg, self.env)
             return logits
+        if self._graph is not None:
+            self.graph_rounds += 1
+            return lm.unembed(self.params, self._graph.replay(), self.cfg)
         pool = self.pool
         tok, tables, pos, ablk, aoff = inputs
         logits, pool.k_pool, pool.v_pool = lm.decode_step_paged(

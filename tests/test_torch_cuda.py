@@ -884,3 +884,173 @@ def test_engine_wall_spans_on_the_profilers_clock(cuda):
           device)
     assert all(0 <= lag <= 100_000 for lag in host), host
     assert all(0 <= lag <= 1_000_000 for lag in device), device
+
+
+def _graph_cfg(name):
+    """micro, or mistral-nemo-12b's widths and vocabulary at 2 layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if name == "micro":
+        return get_config("micro")
+    return dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=2)
+
+
+def _graph_script(eng, vocab):
+    """Eleven decode calls (15 steps) on 4 slots (one never bound): two sessions, a
+    third admitted mid-sequence, a round one row sits out, a park and a
+    cache-hit resume with a delta, a release, two-step calls.  Returns
+    every call's ids."""
+    import numpy as np
+
+    rng = np.random.RandomState(11)
+    a, b, c, tool = (rng.randint(1, vocab, n).astype(np.int32)
+                     for n in (37, 20, 45, 11))
+    slot, nxt, ids = {}, {}, []
+
+    def admit(sid, toks, hit=False):
+        slot[sid] = eng.start_session(sid, toks, cached_hit=hit)
+        nxt[sid] = int(toks[-1])
+
+    def step(sids, n_steps=1):
+        out = eng.decode({slot[s]: nxt[s] for s in sids}, n_steps=n_steps)
+        for s in sids:
+            ids.append((s, out[slot[s]]))
+            nxt[s] = out[slot[s]][-1]
+
+    admit("a", a)
+    admit("b", b)
+    step("ab", 2)
+    step("ab")
+    admit("c", c)
+    step("abc")
+    step("bc")
+    assert eng.park_session("a")
+    step("bc", 2)
+    done_a = [t for s, o in ids if s == "a" for t in o]
+    admit("a", np.concatenate([a, np.asarray(done_a, np.int32), tool]),
+          hit=True)
+    step("abc")
+    step("abc", 2)
+    assert eng.release_session("b")
+    step("ac")
+    step("a")
+    step("ac", 2)
+    step("c")
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["micro", "nemo-2l"])
+def test_graphed_engine_matches_the_eager_round(cuda, name):
+    """An engine that replays its round as a CUDA graph against the same
+    engine made to run the eager round (``lm.decode_step_paged``), on the
+    same params from the same empty pools, over ``_graph_script``: the
+    same ids, pools within ``TOL`` (expected bit-equal: the same kernels
+    on the same inputs; printed), the same launches of each wrapper, one
+    capture and every step a replay."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg = _graph_cfg(name)
+    params = lm.init_params(cfg, seed=5, device=cuda)
+    wrappers = (F.flash_prefill, P.paged_decode, P.paged_append)
+    runs = {}
+    for graphed in (True, False):
+        eng = Engine(cfg, params, n_slots=4, max_len=256, pool_blocks=48)
+        if not graphed:
+            eng._round_graph = lambda: None
+        before = [w.launches for w in wrappers]
+        with torch.no_grad():
+            ids = _graph_script(eng, cfg.vocab)
+        torch.cuda.synchronize()
+        runs[graphed] = (ids, [w.launches - n for w, n in
+                               zip(wrappers, before)], eng)
+    (ids_g, n_g, g), (ids_e, n_e, e) = runs[True], runs[False]
+    assert ids_g == ids_e
+    assert n_g == n_e and n_g[1] == n_g[2] == cfg.n_layers * e.decode_steps
+    assert (g.graph_captures, g.graph_rounds) == (1, g.decode_steps)
+    assert (e.graph_captures, e.graph_rounds) == (0, 0)
+    assert g.decode_steps == e.decode_steps == 15
+    assert g.pool.tables == e.pool.tables and g.pool.lens == e.pool.lens
+    bits = []
+    for x, y in ((g.pool.k_pool, e.pool.k_pool),
+                 (g.pool.v_pool, e.pool.v_pool)):
+        bits.append(torch.equal(x, y))
+        assert float((x.float() - y.float()).abs().max()) < TOL
+    print(f"{name}: pools bit-equal {bits}; launches {n_g}")
+
+
+@pytest.mark.cuda
+def test_round_graph_capture_writes_no_kv(cuda):
+    """The capture and its warm-up run every row idle (the drop sentinel,
+    zero tables): the pools are bit-equal before and after, no wrapper's
+    count moves, and a second call keeps the graph."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("micro")
+    eng = Engine(cfg, lm.init_params(cfg, seed=6, device=cuda), n_slots=3,
+                 max_len=128, pool_blocks=16)
+    rng = np.random.RandomState(6)
+    for sid, n in (("a", 40), ("b", 17)):
+        eng.start_session(sid, rng.randint(1, cfg.vocab, n), False)
+    k0, v0 = eng.pool.k_pool.clone(), eng.pool.v_pool.clone()
+    wrappers = (F.flash_prefill, P.paged_decode, P.paged_append)
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        graph = eng._round_graph()
+    torch.cuda.synchronize()
+    assert torch.equal(eng.pool.k_pool, k0)
+    assert torch.equal(eng.pool.v_pool, v0)
+    assert [w.launches for w in wrappers] == before
+    assert graph.launches == {P.paged_append: cfg.n_layers,
+                              P.paged_decode: cfg.n_layers}
+    assert eng._round_graph() is graph and eng.graph_captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["micro", "nemo-2l"])
+def test_graphed_round_kernels_reach_the_profiler(cuda, name):
+    """A profiled round of a graphed engine (captured before the profiler
+    starts, as in the benchmark) holds ``n_layers`` paged decode and
+    ``n_layers`` append kernels among its device events, and as many
+    kernels as the eager round: the benchmark's per-layer readers count
+    them."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    cfg = _graph_cfg(name)
+    params = lm.init_params(cfg, seed=7, device=cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = {}
+    for graphed in (True, False):
+        eng = Engine(cfg, params, n_slots=4, max_len=256, pool_blocks=32)
+        if not graphed:
+            eng._round_graph = lambda: None
+        rng = np.random.RandomState(7)
+        cur = {}
+        for i in range(3):
+            toks = rng.randint(1, cfg.vocab, 30 + 9 * i)
+            cur[eng.start_session(f"s{i}", toks, False)] = int(toks[-1])
+        with torch.no_grad():
+            out = eng.decode(cur)                        # captures
+            cur = {s: o[-1] for s, o in out.items()}
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                eng.decode(cur)
+                torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() != cpu and not e.is_user_annotation()
+                 and not e.name().startswith(("Memcpy", "Memset"))]
+        kernels[graphed] = names
+        assert sum("paged_decode_kernel" in n for n in names) == cfg.n_layers
+        assert sum("paged_append_kernel" in n for n in names) == cfg.n_layers
+    print(f"{name}: kernels in a profiled round, graphed / eager: "
+          f"{len(kernels[True])} / {len(kernels[False])}")
+    assert len(kernels[True]) == len(kernels[False])
